@@ -1,0 +1,78 @@
+// Shared definitions of the flexlight_tpu_torch kernels.
+//
+// Every kernel here is launched 1-D over its items (rays or pixels) with
+// FL_LAUNCH, and reads blockDim.x wherever it cooperates inside a block.
+// That lets the same sources compile for the host (-DFL_EMULATE, see
+// _native.build_library): each thread then runs in turn as a block of one,
+// __syncthreads() is a no-op, and the C entry points take host pointers.
+// The CPU tests use that build to hold the kernels' arithmetic against
+// their plain PyTorch versions.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef FL_EMULATE
+
+struct fl_dim3 { unsigned x, y, z; };
+static thread_local fl_dim3 threadIdx, blockIdx, blockDim, gridDim;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__
+#define __constant__
+#define __restrict__ __restrict
+static inline void __syncthreads() {}
+static inline int __syncthreads_and(int p) { return p; }
+static inline int __syncthreads_or(int p) { return p; }
+#define FL_LAUNCH(kernel, n_items, block, stream, ...)                  \
+    do {                                                                 \
+        (void)(stream);                                                  \
+        gridDim = fl_dim3{(unsigned)(n_items), 1, 1};                    \
+        blockDim = fl_dim3{1, 1, 1};                                     \
+        threadIdx = fl_dim3{0, 0, 0};                                    \
+        for (unsigned b_ = 0; b_ < (unsigned)(n_items); ++b_) {          \
+            blockIdx = fl_dim3{b_, 0, 0};                                \
+            kernel(__VA_ARGS__);                                         \
+        }                                                                \
+        return 0;                                                        \
+    } while (0)
+
+#else
+
+#include <cuda_runtime.h>
+#define FL_LAUNCH(kernel, n_items, block, stream, ...)                  \
+    do {                                                                 \
+        unsigned grid_ = (unsigned)(((n_items) + (block) - 1) / (block)); \
+        kernel<<<grid_, (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__); \
+        return (int)cudaGetLastError();                                  \
+    } while (0)
+
+#endif
+
+#define FL_EXPORT extern "C"
+
+// 2^-16, the reference's intersection epsilon (ops/intersect.py BIAS)
+#define FL_BIAS 0.0000152587890625f
+#define FL_POW32 4294967296.0f
+// f32(1/255), the exact reconstruction factor of an rgba8 byte
+#define FL_INV_255 ((float)(1.0 / 255.0))
+#define FL_INV_256 ((float)(1.0 / 256.0))
+
+// One rgba8 byte of a packed pixel as its quantized float k * f32(1/255).
+__device__ __forceinline__ float fl_byte_f(uint32_t p, int i) {
+    return (float)((p >> (8 * i)) & 0xFFu) * FL_INV_255;
+}
+
+// The rgba8 store: round(clip(v, 0, 1) * 255) as a byte (round half to even).
+__device__ __forceinline__ uint32_t fl_quant_byte(float v) {
+    v = v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
+    return (uint32_t)rintf(v * 255.0f);
+}
+
+// x mod y with the sign of y (jnp.mod / torch.remainder on floats).
+__device__ __forceinline__ float fl_mod(float x, float y) {
+    float m = fmodf(x, y);
+    if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) m += y;
+    return m;
+}

@@ -1,0 +1,595 @@
+"""Wavefront path tracer core (flexlight_tpu/ops/pathtrace.py).
+
+One function over the whole ray batch [N = H*W] replaces the reference's
+per-pixel fragment shader (pathtracer_fragment.glsl:400-646): primary hits
+from camera rays, the bounce loop with per-ray kill masks, next-event
+estimation by weighted reservoir over all lights with one shadow ray, and
+the 6-target MRT contract (glsl:601-646) in float32.
+
+The bounce is kept as the reference's stage split, bounce_carry_init ->
+bounce_pre -> bounce_tex -> bounce_shade -> bounce_apply -> bounce_commit
+(composed by bounce_post), so a fused per-bounce kernel can be held
+against it stage by stage. Shading is plain tensor code; the traversals
+go through the closest-hit / any-hit kernels of ops.intersect_kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import vec3 as v3
+from .brdf import SQRT3, forward_trace_soa, pow5
+from .buffers import SceneBuffers, fetch_tex_val_table
+from .geometry import world_geometry
+from .intersect import BIAS, POW32
+from .rng import f32, noise4
+
+INV_255 = 1.0 / 255.0
+INV_PI = 0.3183098861837907
+
+
+class MRT(NamedTuple):
+    """Flat per-pixel render targets, fp32 (glsl:74-79)."""
+    color: torch.Tensor          # [N, 3] finalColor (originalColor NOT folded in)
+    glass: torch.Tensor          # [N] glassFilter
+    original_color: torch.Tensor  # [N, 3] first-hit albedo product
+    original_w: torch.Tensor     # [N] min(originalRMEx, firstRayLength) + 1/255
+    render_id: torch.Tensor      # [N, 4] packed normal/rme + light/shadow in w
+    original_id_w: torch.Tensor  # [N] originalTPOx + 1/255 (glsl:639)
+    location_id: torch.Tensor    # [N, 4] mod of local position (glsl:641-642)
+    alpha: torch.Tensor          # [N] coverage (0 where no primary hit)
+
+
+def to_4bit_representation(a, b):
+    """Pack two [0,1] floats into the high/low nibbles of one byte
+    (glsl:91-95)."""
+    aui = (a * 255.0).to(torch.int64) & 240
+    bui = ((b * 255.0).to(torch.int64) & 240) >> 4
+    return (aui | bui).to(torch.float32) * INV_255
+
+
+def combine_normal_rme_soa(n3, rough, metal, emis):
+    """4-bit spherical normal + rme packing for the id channel
+    (glsl:97-105) -> 3 [N] channels."""
+    phi = torch.atan2(n3[2], n3[0]) * INV_PI * 0.5 + 0.5
+    theta = torch.atan2(n3[0], n3[1]) * INV_PI * 0.5 + 0.5
+    return (to_4bit_representation(phi, theta), rough,
+            to_4bit_representation(metal, emis))
+
+
+def inverse_view(view_matrix) -> torch.Tensor:
+    """The inverse of the camera's 3x3 view matrix, in float32 on the
+    host (the matrix comes from the host each frame: inverting it there
+    spares the card a round trip)."""
+    return torch.linalg.inv(torch.as_tensor(view_matrix, dtype=torch.float32).cpu())
+
+
+def camera_rays(width: int, height: int, position: torch.Tensor,
+                inv_view: torch.Tensor):
+    """Camera rays in place of the reference's instanced raster pass:
+    pixel centres map to the NDC the vertex shader produces
+    (pathtracer_vertex.glsl:66-68); viewMatrix @ dir = (ndc, 1), so
+    dir = inv_view @ (ndc, 1) (inv_view: `inverse_view`, on any device).
+    Returns (origin3, dir3, ndc2), SoA channels of [N = H*W]."""
+    dev = position.device
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
+    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
+    ndc_y, ndc_x = torch.meshgrid(py, px, indexing="ij")
+    ndc = (ndc_x.reshape(-1), ndc_y.reshape(-1))
+    inv = inv_view.to(dev)
+    raw = tuple(ndc[0] * inv[c, 0] + ndc[1] * inv[c, 1] + inv[c, 2] for c in range(3))
+    # brdf.normalize of the reference divides by the norm (normalize3
+    # multiplies by its reciprocal, which rounds differently)
+    norm = torch.clamp_min(v3.norm3(raw), 1e-30)
+    direction = tuple(c / norm for c in raw)
+    origin = tuple(position[c].expand(direction[0].shape) for c in range(3))
+    return origin, direction, ndc
+
+
+class ReservoirPick(NamedTuple):
+    """Reservoir selection (glsl:400-447): the shadow-ray request plus what
+    reservoir_finish consumes after the shadow test."""
+    local_color: tuple
+    res_num: torch.Tensor
+    show_color: torch.Tensor
+    show_shadow: torch.Tensor
+    offset_target: tuple
+    light_dir: tuple            # unit direction to the selected light
+    max_len: torch.Tensor       # distance to the selected light
+
+
+def reservoir_finish(pick: ReservoirPick, emis, shadowed):
+    """Reservoir epilogue after the shadow test (glsl:448-461)."""
+    in_shadow = ~pick.show_color & (pick.show_shadow | shadowed)
+    id_w = (torch.remainder(pick.res_num, 128) * 2).to(torch.float32) * INV_255
+    id_w = id_w + torch.where(in_shadow, INV_255, 0.0)
+    keep = pick.show_color | ~in_shadow
+    e3 = (emis, emis, emis)
+    return v3.where3(keep, v3.add3(pick.local_color, e3), e3), id_w
+
+
+def reservoir_sample(buffers: SceneBuffers, albedo3, rough, metal, emis,
+                     origin3, unit_dir3, random_vec4, n_rough3, n_smooth3,
+                     geometry_offset, random_seed, shadow_soa, alive_mask=None,
+                     rng_mode: str = "hash"):
+    """Weighted reservoir NEE over all lights plus one shadow ray
+    (glsl:400-461): reservoir_select -> shadow_soa -> reservoir_finish.
+    Returns (color 3-tuple, id_w [N])."""
+    pick = reservoir_select(buffers, albedo3, rough, metal, emis, origin3,
+                            unit_dir3, random_vec4, n_rough3, n_smooth3,
+                            geometry_offset, random_seed, rng_mode=rng_mode)
+    shadowed = shadow_soa(pick.offset_target, pick.light_dir, pick.max_len,
+                          alive=alive_mask)
+    return reservoir_finish(pick, emis, shadowed)
+
+
+def reservoir_select(buffers: SceneBuffers, albedo3, rough, metal, emis,
+                     origin3, unit_dir3, random_vec4, n_rough3, n_smooth3,
+                     geometry_offset, random_seed,
+                     rng_mode: str = "hash") -> ReservoirPick:
+    """The reservoir light loop and selection, up to (and excluding) the
+    shadow ray (glsl:400-447). flexlight_tpu unrolls this loop below
+    SCAN_LIGHTS_MIN = 16 lights and scans it above, for compile time; run
+    eagerly both are the same sequential loop over the lights, and so is
+    this one."""
+    shp = origin3[0].shape
+    zero = torch.zeros(shp, dtype=torch.float32, device=origin3[0].device)
+    local_color = (zero, zero, zero)
+    res_length = zero
+    total_weight = zero
+    res_num = torch.zeros(shp, dtype=torch.int32, device=zero.device)
+    res_weight = zero
+    res_dir = (zero, zero, zero)
+    lr = noise4(random_vec4[2], random_vec4[3], BIAS, random_seed, mode=rng_mode)[0:2]
+    v = v3.neg3(unit_dir3)
+    for j in range(buffers.lights.shape[0]):
+        row = buffers.lights[j]
+        strength = row[1, 0]
+        variation = row[1, 1]
+        active = strength > 0.0  # skip dead lights (glsl:415)
+        light = tuple(row[0, c] + random_vec4[c] * variation for c in range(3))
+        d = v3.sub3(light, origin3)
+        cfl = forward_trace_soa(albedo3, rough, metal, emis, d, strength, n_rough3, v)
+        weight = v3.norm3(cfl)
+        local_color = v3.where3(active, v3.add3(local_color, cfl), local_color)
+        res_length = torch.where(active, res_length + 1.0, res_length)
+        total_weight = torch.where(active, total_weight + weight, total_weight)
+        sel = active & (torch.abs(lr[1]) * total_weight <= weight)
+        res_num = torch.where(sel, j, res_num)
+        res_weight = torch.where(sel, weight, res_weight)
+        res_dir = v3.where3(sel, d, res_dir)
+        nxt = noise4(lr[0], lr[1], BIAS, random_seed, mode=rng_mode)[2:4]
+        lr = (torch.where(active, nxt[0], lr[0]), torch.where(active, nxt[1], lr[1]))
+
+    unit_light_dir = v3.normalize3(res_dir)
+    return ReservoirPick(
+        local_color=local_color, res_num=res_num,
+        show_color=(res_length == 0.0) | (res_weight == 0.0),
+        show_shadow=v3.dot3(n_smooth3, unit_light_dir) <= BIAS,
+        offset_target=v3.add3(origin3, v3.scale3(n_smooth3, geometry_offset)),
+        light_dir=unit_light_dir, max_len=v3.norm3(res_dir))
+
+
+def build_material_table(buffers: SceneBuffers, world_geom) -> torch.Tensor:
+    """Per-triangle shading row [S, 49]: world geometry (12), attributes
+    (28), forward rotation (9)."""
+    t_idx = buffers.geometry[:, 9].to(torch.int64)
+    rot_f = buffers.rotations[t_idx][:, 0].reshape(-1, 9)
+    return torch.cat([world_geom, buffers.attributes, rot_f], dim=1)
+
+
+def fetch_rows_t(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """mat[idx] with a leading channel axis: [C, N], each row contiguous."""
+    return torch.index_select(mat.T.contiguous(), 1, idx.reshape(-1).long())
+
+
+class BounceCarry(NamedTuple):
+    """Loop-carried wavefront state of the bounce loop (glsl:464-599 locals
+    plus the shader globals threaded through `aux`)."""
+    alive: torch.Tensor
+    tri: torch.Tensor
+    hs: torch.Tensor
+    hu: torch.Tensor
+    hv: torch.Tensor
+    ray_origin: tuple
+    ray_dir: tuple
+    last_hit_point: tuple
+    importancy: tuple
+    original_color: tuple
+    dont_filter: torch.Tensor
+    final_color: tuple
+    render_id: tuple
+    original_id_acc: tuple
+    glass: torch.Tensor
+    original_rme_x: torch.Tensor
+    original_tpo_x: torch.Tensor
+    first_ray_length: torch.Tensor
+
+
+class BounceSurface(NamedTuple):
+    """Per-bounce surface quantities of bounce_pre, read after the texture
+    fetch."""
+    m: torch.Tensor
+    smooth_normal: tuple
+    geometry_offset: torch.Tensor
+    bary_u: torch.Tensor
+    bary_v: torch.Tensor
+    tex_nums: tuple
+    inline_albedo: tuple
+    inline_rme: tuple
+    inline_tpo: tuple
+
+
+class ShadeRequest(NamedTuple):
+    """bounce_shade -> bounce_apply: the NEE shadow-ray request (pick) and
+    the shading-frame values the post-shadow stage reads."""
+    m: torch.Tensor
+    ray_dir: tuple              # recomputed incoming unit direction
+    smooth_normal: tuple        # sign-flipped shading normal
+    sign_dir: torch.Tensor
+    random_sphere: tuple
+    roughness_brdf: torch.Tensor
+    is_solid: torch.Tensor
+    write_id_w: torch.Tensor
+    pick: ReservoirPick
+
+
+def bounce_carry_init(primary_parts, camera_pos, direction3, aux) -> BounceCarry:
+    ps, pu, pv, ptri = primary_parts
+    zero = torch.zeros_like(ps)
+    one = torch.ones_like(ps)
+    (render_id, original_id_acc, glass, original_rme_x, original_tpo_x,
+     first_ray_length) = aux
+    ray_origin = tuple(camera_pos[c].expand(ps.shape) for c in range(3))
+    return BounceCarry(
+        alive=ptri != -1, tri=torch.clamp_min(ptri, 0), hs=ps, hu=pu, hv=pv,
+        ray_origin=ray_origin, ray_dir=direction3, last_hit_point=ray_origin,
+        importancy=(one, one, one), original_color=(one, one, one),
+        dont_filter=torch.ones_like(ps, dtype=torch.bool),
+        final_color=(zero, zero, zero), render_id=render_id,
+        original_id_acc=original_id_acc, glass=glass,
+        original_rme_x=original_rme_x, original_tpo_x=original_tpo_x,
+        first_ray_length=first_ray_length)
+
+
+def bounce_pre(carry: BounceCarry, i: int, mat, config):
+    """Bounce stage 1 (glsl:475-526): importance kill, material row fetch,
+    hit-point update, normal interpolation, texture coordinates.
+    Returns (carry, BounceSurface)."""
+    zero = torch.zeros_like(carry.hs)
+    importance_len = v3.norm3(v3.mul3(carry.importancy, carry.original_color))
+    alive = carry.alive & (importance_len >= config.min_importancy * SQRT3)
+    m = alive
+    rowt = fetch_rows_t(mat, carry.tri)      # [49, N]
+    rot = tuple(rowt[40 + k] for k in range(9))
+
+    new_origin = v3.add3(v3.scale3(carry.ray_dir, carry.hs), carry.ray_origin)
+    ray_origin = v3.where3(m, new_origin, carry.ray_origin)
+    uvw = (1.0 - carry.hu - carry.hv, carry.hu, carry.hv)
+
+    wv = [(rowt[3 * k], rowt[3 * k + 1], rowt[3 * k + 2]) for k in range(3)]
+    geometry_normal = v3.normalize3(v3.cross3(
+        v3.sub3(wv[0], wv[1]), v3.sub3(wv[0], wv[2])))
+
+    smooth_normal = (zero, zero, zero)
+    geometry_offset = zero
+    bary_u = zero
+    bary_v = zero
+    for k in range(3):
+        vn = (rowt[12 + 3 * k], rowt[13 + 3 * k], rowt[14 + 3 * k])
+        wn = v3.matvec3(rot, vn)
+        smooth_normal = v3.add3(smooth_normal, v3.scale3(wn, uvw[k]))
+        # tan(acos(x)) = sqrt(1-x^2)/x: shadow-acne offset (glsl:516-518)
+        cos_a = torch.abs(torch.clamp(v3.dot3(geometry_normal, wn), -1.0, 1.0))
+        tan_a = torch.clamp(torch.sqrt(1.0 - cos_a * cos_a) / cos_a, 0.0, 1.0)
+        diff = v3.norm3(v3.sub3(ray_origin, wv[k]))
+        geometry_offset = geometry_offset + diff * tan_a * uvw[k]
+        bary_u = bary_u + rowt[21 + 2 * k] * uvw[k]
+        bary_v = bary_v + rowt[22 + 2 * k] * uvw[k]
+    smooth_normal = v3.normalize3(smooth_normal)
+
+    surface = BounceSurface(
+        m=m, smooth_normal=smooth_normal, geometry_offset=geometry_offset,
+        bary_u=bary_u, bary_v=bary_v,
+        tex_nums=(rowt[27], rowt[28], rowt[29]),
+        inline_albedo=(rowt[30], rowt[31], rowt[32]),
+        inline_rme=(rowt[33], rowt[34], rowt[35]),
+        inline_tpo=(rowt[36], rowt[37], rowt[38]))
+    return carry._replace(alive=alive, ray_origin=ray_origin), surface
+
+
+def bounce_tex(buffers: SceneBuffers, surface: BounceSurface):
+    """Bounce stage 2: the three atlas fetches (glsl:502-510). Returns
+    (albedo3, rough, metal, emis, tpo3)."""
+    albedo = fetch_tex_val_table(buffers.albedo_tab, surface.bary_u,
+                                 surface.bary_v, surface.tex_nums[0],
+                                 surface.inline_albedo)
+    rough, metal, emis = fetch_tex_val_table(
+        buffers.pbr_tab, surface.bary_u, surface.bary_v, surface.tex_nums[1],
+        surface.inline_rme)
+    tpo = fetch_tex_val_table(buffers.tpo_tab, surface.bary_u, surface.bary_v,
+                              surface.tex_nums[2], surface.inline_tpo)
+    return albedo, rough, metal, emis, tpo
+
+
+def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i: int,
+                 buffers: SceneBuffers, camera_pos, ndc2, cos_sample_n,
+                 config, random_seed):
+    """Bounce stage 3a (glsl:529-576 + reservoir selection 400-447):
+    shading frame, Fresnel-chance decision, first-surface bookkeeping,
+    reservoir light selection, up to the NEE shadow ray.
+    Returns (carry, ShadeRequest)."""
+    albedo, rough, metal, emis, tpo = tex
+    m = surface.m
+    smooth_normal = surface.smooth_normal
+    zero = torch.zeros_like(carry.hs)
+    ray_origin = carry.ray_origin
+    last_hit_point = carry.last_hit_point
+    dont_filter = carry.dont_filter
+    rng_mode = config.rng
+
+    ray_dir = v3.where3(m, v3.normalize3(v3.sub3(ray_origin, last_hit_point)),
+                        carry.ray_dir)
+    sign_dir = torch.sign(v3.dot3(ray_dir, smooth_normal))
+    smooth_normal = v3.scale3(smooth_normal, -sign_dir)
+
+    rv = noise4(ndc2[0], ndc2[1], f32(i, zero) + cos_sample_n, random_seed,
+                mode=rng_mode)
+    random_sphere = v3.normalize3(v3.add3(
+        smooth_normal, v3.normalize3((rv[0], rv[1], rv[2]))))
+    brdf = 1.0 + (torch.abs(v3.dot3(smooth_normal, ray_dir)) - 1.0) * metal
+    roughness_brdf = rough * brdf
+    rough_normal = v3.normalize3(v3.mix3(smooth_normal, random_sphere,
+                                         roughness_brdf))
+
+    h = v3.normalize3(v3.sub3(rough_normal, ray_dir))
+    v_dot_h = torch.clamp_min(-v3.dot3(ray_dir, h), 0.0)
+    one_m_theta5 = pow5(1.0 - v_dot_h)
+    fresnel_reflect = zero
+    for c in range(3):
+        f0 = albedo[c] * brdf
+        fresnel_reflect = torch.maximum(fresnel_reflect,
+                                        f0 + (1.0 - f0) * one_m_theta5)
+    # Fresnel-chance solid/translucent decision (glsl:550)
+    is_solid = tpo[0] * fresnel_reflect <= torch.abs(rv[3])
+
+    # first-surface bookkeeping vs importancy accumulation (glsl:553-573)
+    df = dont_filter & m
+    original_tpo_x = torch.where(df, tpo[0], carry.original_tpo_x)
+    original_color = v3.where3(df, v3.mul3(carry.original_color, albedo),
+                               carry.original_color)
+    original_rme_x = torch.where(df, carry.original_rme_x + rough,
+                                 carry.original_rme_x)
+    idu = combine_normal_rme_soa(smooth_normal, rough, metal, emis)
+    scale_i = 2.0 ** -i
+    render_id = tuple(carry.render_id[c] + torch.where(df, scale_i * idu[c], 0.0)
+                      for c in range(3)) + (carry.render_id[3],)
+    original_id_acc = carry.original_id_acc
+    if i == 0:
+        original_id_acc = tuple(
+            original_id_acc[c] + torch.where(df, scale_i * idu[c], 0.0)
+            for c in range(3)) + (original_id_acc[3],)
+    new_dont_filter = ((rough < 0.01) & is_solid) | ~is_solid
+    is_glass = is_solid & (tpo[0] > 0.01)
+    glass = torch.where(df & is_glass, carry.glass + 1.0, carry.glass)
+    new_dont_filter = new_dont_filter & ~is_glass
+    importancy = v3.where3(~dont_filter & m, v3.mul3(carry.importancy, albedo),
+                           carry.importancy)
+    dont_filter = (df & new_dont_filter) | (~df & dont_filter)
+
+    first_ray_length = carry.first_ray_length
+    if i == 1:
+        cam3 = tuple(camera_pos[c].expand(zero.shape) for c in range(3))
+        ratio = (v3.norm3(v3.sub3(ray_origin, last_hit_point))
+                 / torch.clamp_min(v3.norm3(v3.sub3(last_hit_point, cam3)), 1e-30))
+        first_ray_length = torch.where(
+            m, torch.minimum(ratio, first_ray_length), first_ray_length)
+
+    pick = reservoir_select(
+        buffers, albedo, rough, metal, emis, ray_origin, ray_dir, rv,
+        v3.scale3(rough_normal, -sign_dir), v3.scale3(smooth_normal, -sign_dir),
+        surface.geometry_offset, random_seed, rng_mode=rng_mode)
+    write_id_w = (dont_filter | (i == 0)) & m
+
+    carry = carry._replace(
+        importancy=importancy, original_color=original_color,
+        dont_filter=dont_filter, original_id_acc=original_id_acc,
+        glass=glass, original_rme_x=original_rme_x,
+        original_tpo_x=original_tpo_x, first_ray_length=first_ray_length,
+        render_id=render_id)
+    return carry, ShadeRequest(
+        m=m, ray_dir=ray_dir, smooth_normal=smooth_normal, sign_dir=sign_dir,
+        random_sphere=random_sphere, roughness_brdf=roughness_brdf,
+        is_solid=is_solid, write_id_w=write_id_w, pick=pick)
+
+
+def next_ray_dir(req: ShadeRequest, tpo):
+    """The next bounce direction (glsl:582-589): reflect, or Fresnel-chance
+    refract, roughness-mixed. Unmasked."""
+    ray_dir = req.ray_dir
+    smooth_normal = req.smooth_normal
+    zero = torch.zeros_like(ray_dir[0])
+    n_dot_i = v3.dot3(smooth_normal, ray_dir)
+    reflected = v3.sub3(ray_dir, v3.scale3(smooth_normal, 2.0 * n_dot_i))
+    inv_eta = 1.0 / tpo[2]
+    eta = inv_eta + (tpo[2] - inv_eta) * torch.clamp_min(req.sign_dir, 0.0)
+    k = 1.0 - eta * eta * (1.0 - n_dot_i * n_dot_i)
+    refr_coef = eta * n_dot_i + torch.sqrt(torch.clamp_min(k, 0.0))
+    refracted = v3.where3(
+        k < 0.0, (zero, zero, zero),
+        v3.sub3(v3.scale3(ray_dir, eta), v3.scale3(smooth_normal, refr_coef)))
+    bounce_base = v3.where3(req.is_solid, reflected, refracted)
+    return v3.normalize3(v3.mix3(bounce_base, req.random_sphere, req.roughness_brdf))
+
+
+def bounce_apply(carry: BounceCarry, tex, req: ShadeRequest, shadowed) -> BounceCarry:
+    """Bounce stage 3b (glsl:448-461 + 577-589): apply the NEE shadow
+    result, accumulate radiance, compute the next ray direction."""
+    tpo = tex[4]
+    emis = tex[3]
+    m = req.m
+    local_color, id_w = reservoir_finish(req.pick, emis, shadowed)
+    render_id = carry.render_id[0:3] + (
+        torch.where(req.write_id_w, id_w, carry.render_id[3]),)
+    final_color = v3.where3(
+        m, v3.add3(carry.final_color, v3.mul3(local_color, carry.importancy)),
+        carry.final_color)
+    ray_dir = v3.where3(m, next_ray_dir(req, tpo), req.ray_dir)
+    return carry._replace(render_id=render_id, final_color=final_color,
+                          ray_dir=ray_dir)
+
+
+def bounce_commit(carry: BounceCarry, m, i: int, config, traverse_soa) -> BounceCarry:
+    """Bounce stage 3c (glsl:591-597): the next closest hit."""
+    if i + 1 >= config.max_reflections:
+        return carry
+    zero = torch.zeros_like(carry.hs)
+    one = torch.ones_like(carry.hs)
+    ns, nu, nv, ntri = traverse_soa(
+        v3.where3(m, carry.ray_origin, (zero, zero, zero)),
+        v3.where3(m, carry.ray_dir, (zero, zero, one)), alive=m)
+    hs = torch.where(m, ns, carry.hs)
+    hu = torch.where(m, nu, carry.hu)
+    hv = torch.where(m, nv, carry.hv)
+    new_tri = torch.where(m, ntri, -1)
+    alive = carry.alive & (new_tri != -1)
+    tri = torch.clamp_min(torch.where(m, new_tri, carry.tri), 0)
+    last_hit_point = v3.where3(m, carry.ray_origin, carry.last_hit_point)
+    return carry._replace(alive=alive, tri=tri, hs=hs, hu=hu, hv=hv,
+                          last_hit_point=last_hit_point)
+
+
+def bounce_post(carry: BounceCarry, surface: BounceSurface, tex, i: int,
+                buffers: SceneBuffers, camera_pos, ndc2, cos_sample_n, config,
+                random_seed, traverse_soa, shadow_soa) -> BounceCarry:
+    """Bounce stage 3 (glsl:529-599): bounce_shade -> NEE shadow ray ->
+    bounce_apply -> bounce_commit."""
+    carry, req = bounce_shade(carry, surface, tex, i, buffers, camera_pos,
+                              ndc2, cos_sample_n, config, random_seed)
+    shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir,
+                          req.pick.max_len, alive=req.m)
+    carry = bounce_apply(carry, tex, req, shadowed)
+    return bounce_commit(carry, req.m, i, config, traverse_soa)
+
+
+def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
+                direction3, ndc2, cos_sample_n, config, random_seed,
+                traverse_soa, shadow_soa, aux):
+    """The bounce loop (glsl:464-599) with kill masks, SoA over [N].
+    `aux` carries the shader's globals across samples (glsl:84-89)."""
+    carry = bounce_carry_init(primary_parts, camera_pos, direction3, aux)
+    for i in range(config.max_reflections):
+        carry, surface = bounce_pre(carry, i, mat, config)
+        tex = bounce_tex(buffers, surface)
+        carry = bounce_post(carry, surface, tex, i, buffers, camera_pos, ndc2,
+                            cos_sample_n, config, random_seed, traverse_soa,
+                            shadow_soa)
+    final_color = tuple(carry.final_color[c] + carry.importancy[c] * buffers.ambient[c]
+                        for c in range(3))
+    aux = (carry.render_id, carry.original_id_acc, carry.glass,
+           carry.original_rme_x, carry.original_tpo_x, carry.first_ray_length)
+    return final_color, carry.original_color, carry.original_tpo_x, aux
+
+
+def _contiguous3(x3):
+    return tuple(c.contiguous() for c in x3)
+
+
+def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
+               view_matrix, config, random_seed, scheme: str = "kernel",
+               kernels=None) -> MRT:
+    """Full primary + bounce render to the MRT contract (glsl:601-646).
+    Returns flat [N = H*W] per-pixel outputs.
+
+    Only scheme="kernel" is ported: the dense closest-hit / any-hit
+    kernels (`kernels.closest_hit`, `kernels.any_hit`; default the CUDA
+    kernel wrappers of ops.intersect_kernel; any object with those two
+    attributes, such as models.pathtracer.PLAIN). The other schemes of
+    flexlight_tpu are listed in ROADMAP.md."""
+    if scheme != "kernel":
+        raise NotImplementedError(
+            f"scheme={scheme!r} is not ported yet (ROADMAP.md, Queue 2); "
+            "the port renders with scheme='kernel'")
+    from . import intersect_kernel
+
+    kernels = intersect_kernel if kernels is None else kernels
+
+    dev = buffers.geometry.device
+    camera_pos = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
+    inv_view = inverse_view(view_matrix).to(dev)
+    random_seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
+    world_geom = world_geometry(buffers)
+    w4, ids = intersect_kernel.build_w4(world_geom, buffers.id_buffer)
+
+    def traverse_soa(o3, d3, alive=None, edge=BIAS):
+        max_len = torch.full_like(o3[0], POW32)
+        if alive is not None:
+            max_len = torch.where(alive, max_len, 0.0)
+        return kernels.closest_hit(w4, ids, _contiguous3(o3), _contiguous3(d3),
+                                   max_len, edge)
+
+    def shadow_soa(o3, d3, max_len, alive=None):
+        if alive is not None:
+            max_len = torch.where(alive, max_len, 0.0)
+        return kernels.any_hit(w4, _contiguous3(o3), _contiguous3(d3),
+                               max_len.contiguous())
+
+    origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view)
+    mat = build_material_table(buffers, world_geom)
+    # primaries replace the reference's watertight raster pass, so they take
+    # the relaxed edge window; bounce rays keep the exact +BIAS window
+    primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
+    covered = primary_parts[3] != -1
+
+    zero = torch.zeros_like(primary_parts[0])
+    one = torch.ones_like(zero)
+    aux = ((zero, zero, zero, zero),   # render_id
+           (zero, zero, zero, zero),   # original_id accumulation
+           zero, zero, zero,           # glassFilter, originalRMEx, originalTPOx
+           one)                        # firstRayLength
+    total = (zero, zero, zero)
+    for s in range(config.samples_per_ray):
+        cos_sample_n = torch.cos(f32(float(s), zero))
+        color, original_color, original_tpo_x, aux = light_trace(
+            buffers, mat, primary_parts, camera_pos, direction3, ndc2,
+            cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux)
+        total = v3.add3(total, color)
+    final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
+
+    render_id, _, glass, original_rme_x, original_tpo_x, first_ray_length = aux
+    rid3 = render_id[3] + INV_255  # glsl:637
+
+    # primary-hit local position for the location id channel (glsl:641-642)
+    lrow = fetch_rows_t(buffers.geometry, torch.clamp_min(primary_parts[3], 0))
+    puvw = (1.0 - primary_parts[1] - primary_parts[2], primary_parts[1],
+            primary_parts[2])
+    rel_pos = (zero, zero, zero)
+    for k in range(3):
+        lv = (lrow[3 * k], lrow[3 * k + 1], lrow[3 * k + 2])
+        rel_pos = v3.add3(rel_pos, v3.scale3(lv, puvw[k]))
+    cam3 = tuple(camera_pos[c].expand(zero.shape) for c in range(3))
+    div = torch.clamp_min(2.0 * v3.norm3(v3.sub3(rel_pos, cam3)), 1e-30)
+    loc3 = tuple(torch.remainder(rel_pos[c], div) / div for c in range(3))
+
+    n = zero.shape[0]
+    cov = covered
+    covf = cov[:, None]
+    zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    zero4 = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    render_id4 = torch.stack([render_id[0], render_id[1], render_id[2], rid3], dim=-1)
+    location_id4 = torch.stack(
+        [loc3[0], loc3[1], loc3[2], torch.full_like(zero, INV_255)], dim=-1)
+    return MRT(
+        color=torch.where(covf, v3.stack3(final_color), zero3),
+        glass=torch.where(cov, glass, 0.0),
+        original_color=torch.where(covf, v3.stack3(original_color), zero3),
+        original_w=torch.where(
+            cov, torch.minimum(original_rme_x, first_ray_length) + INV_255, 0.0),
+        render_id=torch.where(covf, render_id4, zero4),
+        original_id_w=torch.where(cov, original_tpo_x + INV_255, 0.0),
+        location_id=torch.where(covf, location_id4, zero4),
+        alpha=cov.to(torch.float32),
+    )
+

@@ -1,0 +1,152 @@
+"""Guards of flexlight_tpu_torch: it never loads jax, takes its device
+explicitly and never falls back to a plain version on a device tensor,
+chip_smoke.py refuses to run without a card, the ported surface raises
+for what is not ported, and the transform-upload cache cannot be fooled
+by a new registry."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from flexlight_tpu import Config
+from flexlight_tpu.scene.transform import global_registry, reset_global_registry
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_and_a_cpu_frame_never_import_jax():
+    code = """
+import sys
+import flexlight_tpu_torch as port
+from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+from flexlight_tpu import Config
+e = theater(stand_in_wood_texture(0), device="cpu")
+e.canvas = (16, 12)
+e.config = Config(temporal=True, temporal_samples=2, filter=True, antialiasing="fxaa",
+                  max_reflections=2)
+e.renderer = "pathtracer"
+img = e.renderer.render_frame()
+assert img.shape == (12, 16, 3)
+print("jax" in sys.modules, any(m.startswith("jax.") or m.startswith("jaxlib") for m in sys.modules))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "False"]
+
+
+def test_chip_smoke_fails_clearly_without_a_card(tmp_path):
+    """Here there is no CUDA device: the script must exit non-zero, say
+    why, and print no result line. Alone in a directory it fails too."""
+    script = os.path.join(ROOT, "chip_smoke.py")
+    for cwd in (ROOT, str(tmp_path)):
+        if cwd != ROOT:
+            (tmp_path / "chip_smoke.py").write_text(open(script).read())
+        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode != 0
+        assert "no CUDA device" in res.stdout
+        assert '"ok"' not in res.stdout
+
+
+def test_device_tensor_call_raises_instead_of_falling_back(monkeypatch):
+    """A kernel wrapper given non-CPU tensors goes to the kernel library
+    and raises when it cannot be had (no nvcc here); the plain version is
+    never called."""
+    from flexlight_tpu_torch import _native
+    from flexlight_tpu_torch.models.pathtracer import KERNELS
+
+    if _native._library is not None:
+        pytest.skip("a kernel library is already loaded in this process")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    for k in KERNELS:
+        monkeypatch.setattr(k, "plain", lambda *a, **kw: pytest.fail("fell back to plain"))
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        KERNELS.fxaa(torch.empty(2, 2, 4, device="meta"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        KERNELS.any_hit(torch.empty(4, 1, 16, device="meta"), (meta,) * 3, (meta,) * 3, meta)
+    assert all(k.launches == 0 for k in KERNELS)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    from flexlight_tpu_torch.models.pathtracer import KERNELS
+
+    before = [k.launches for k in KERNELS]
+    img = torch.rand(8, 8, 4)
+    torch.testing.assert_close(KERNELS.fxaa(img), KERNELS.fxaa.plain(img))
+    assert [k.launches for k in KERNELS] == before
+
+
+def _engine(device="cpu"):
+    import flexlight_tpu_torch as port
+    from tests.scenes import cornell_scene
+
+    e = port.FlexLight((8, 8), device=device)
+    e.scene, e.camera = cornell_scene()
+    e.config = Config(temporal=False, filter=False, antialiasing=None, max_reflections=1)
+    return e
+
+
+def test_unported_surface_raises():
+    import flexlight_tpu_torch as port
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
+
+    with pytest.raises(TypeError):
+        port.FlexLight((8, 8))  # the device is an explicit argument
+    e = _engine()
+    with pytest.raises(NotImplementedError):
+        e.renderer = "rasterizer"
+    e.renderer = "pathtracer"
+    e.config = e.config.replace(antialiasing="taa")
+    with pytest.raises(NotImplementedError, match="taa"):
+        e.renderer.render_frame()
+    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="fused_split")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.render_frame()
+
+
+def test_transform_cache_survives_a_registry_reset():
+    """The upload cache holds the registry object: a registry made after
+    reset_global_registry(), at the same version, still uploads."""
+    e = _engine()
+    e.renderer = "pathtracer"
+    r = e.renderer
+    r.render_frame()
+    reg = global_registry()
+    assert r._transform_registry is reg
+    reset_global_registry()
+    fresh = global_registry()
+    fresh.version = reg.version
+    t = fresh.transform_list[0]
+    t.move(1.0, 2.0, 3.0)
+    fresh.version = reg.version
+    r.render_frame()
+    assert r._transform_registry is fresh
+    np.testing.assert_array_equal(r._buffers.shifts[0, 0].numpy(), [1.0, 2.0, 3.0])
+
+
+def test_u8_frames_and_light_updates():
+    """render_frame_u8 is the rgba8 store of the frame; changed lights
+    reach the buffers without re-flattening the scene."""
+    e = _engine()
+    e.renderer = "pathtracer"
+    r = e.renderer
+    f = r.render_frame()
+    u8 = r.render_frame_u8()
+    assert u8.dtype == np.uint8 and u8.shape == f.shape
+    np.testing.assert_array_equal(u8, np.round(np.clip(f, 0, 1) * 255).astype(np.uint8))
+    geometry = r._buffers.geometry
+    e.scene.primary_light_sources[0].intensity = 7.0
+    r.update_primary_light_sources()
+    assert r._buffers.geometry is geometry
+    assert float(r._buffers.lights[0, 1, 0]) == 7.0

@@ -1,0 +1,163 @@
+"""Where the time of the port's headline frame goes, on one CUDA card.
+
+    python3 tools/profile_frame.py [--device cuda:0] [--seed 0] [--timed 8]
+                                   [--profiled 3] [--width 1920] [--height 1080]
+                                   [--out chiprun_out/profile_frame.json]
+
+Renders theater (stand-in wood texture from --seed) with the headline
+config (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces) through
+flexlight_tpu_torch's PathTracer on --device, and reports:
+
+  * frame ms: host wall time of render_frame() (which returns the frame on
+    the host), median of --timed frames after two warm-up frames;
+  * device ms per frame, by part: torch.profiler over --profiled frames of
+    PathTracer._render_device() plus a synchronize; the sum of the device
+    time of every kernel the card ran, split into the port's kernels (by
+    their CUDA function names) and all other kernels (torch's own);
+  * busy share in the profiled run: device ms / wall ms of those profiled
+    frames. The profiler slows the host's launches, so this is a lower
+    bound of the unprofiled frame's busy share;
+  * idle share of the unprofiled frame, derived: 1 - (device ms per frame
+    from the profile) / (median frame ms). Device time per kernel does not
+    depend on the host, so it carries over from the profiled frames.
+
+Prints the card's name and power limit, a table, and writes the numbers as
+JSON to --out. Exits non-zero if no CUDA device is present or the profiler
+saw no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# CUDA function name -> part of the frame
+PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
+         ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
+         ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
+OTHER = "torch ops (shading, temporal, packing, vote repair)"
+
+
+def part_of(kernel_name: str) -> str:
+    for prefix, part in PARTS:
+        if prefix in kernel_name:  # names may come mangled or demangled
+            return part
+    return OTHER
+
+
+def device_kernels(prof):
+    """(name, device us) of every kernel the profiler recorded."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        out.append((ev.name, float(ev.time_range.elapsed_us())))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--timed", type=int, default=8)
+    ap.add_argument("--profiled", type=int, default=3)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_frame.json"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+
+    dev = torch.device(args.device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        print("FAIL: profile_frame.py measures the frame on a CUDA card; none is present",
+              flush=True)
+        return 2
+    sys.path.insert(0, ROOT)
+    from flexlight_tpu_torch import Config, reset_global_registry
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(dev)} | {smi}", flush=True)
+
+    config = Config(temporal=True, temporal_samples=4, filter=True,
+                    antialiasing="fxaa", samples_per_ray=1, max_reflections=5)
+    reset_global_registry()
+    e = theater(stand_in_wood_texture(args.seed), device=dev)
+    tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev)
+    for _ in range(2):
+        tracer.render_frame()
+
+    frame_ms = []
+    for _ in range(args.timed):
+        t = time.perf_counter()
+        tracer.render_frame()
+        frame_ms.append((time.perf_counter() - t) * 1000.0)
+    frame_med = statistics.median(frame_ms)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(args.profiled):
+            tracer._render_device()
+        torch.cuda.synchronize(dev)
+        prof_wall_ms = (time.perf_counter() - t) * 1000.0 / args.profiled
+
+    kernels = device_kernels(prof)
+    if not kernels or sum(us for _, us in kernels) <= 0.0:
+        print("FAIL: the profiler recorded no device time", flush=True)
+        return 1
+    parts = {part: 0.0 for _, part in PARTS}
+    parts[OTHER] = 0.0
+    for name, us in kernels:
+        parts[part_of(name)] += us / 1000.0 / args.profiled
+    busy = sum(parts.values())
+    launches = len(kernels) / args.profiled
+    top = sorted(((e.key, e.self_device_time_total / 1000.0 / args.profiled,
+                   e.count / args.profiled) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                 key=lambda t: -t[1])[:8]
+
+    print(f"[frame] theater {args.width}x{args.height}: render_frame() ms "
+          f"{[round(x, 1) for x in frame_ms]}, median {frame_med:.1f}", flush=True)
+    print("| Part | Device ms per frame |", flush=True)
+    print("| --- | --- |", flush=True)
+    for part, ms in parts.items():
+        print(f"| {part} | {ms:.3f} |", flush=True)
+    print(f"| device busy | {busy:.3f} |", flush=True)
+    print(f"[profile] {launches:.0f} kernels per frame; profiled frame wall "
+          f"{prof_wall_ms:.1f} ms, busy share there {busy / prof_wall_ms:.3f}; "
+          f"unprofiled frame {frame_med:.1f} ms, derived idle share "
+          f"{1.0 - busy / frame_med:.3f}", flush=True)
+    print("[profile] largest torch ops by the device time of their kernels, ms and calls "
+          "per frame: " + "; ".join(f"{n} {ms:.2f} ({c:.0f})" for n, ms, c in top), flush=True)
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"device": smi, "width": args.width, "height": args.height,
+                   "frame_ms": frame_ms, "frame_ms_median": frame_med,
+                   "device_ms_per_frame": parts, "device_busy_ms": busy,
+                   "kernels_per_frame": launches, "profiled_wall_ms": prof_wall_ms,
+                   "busy_share_profiled": busy / prof_wall_ms,
+                   "idle_share_derived": 1.0 - busy / frame_med,
+                   "top_torch_ops_ms": {n: ms for n, ms, _ in top}}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
