@@ -4,21 +4,33 @@
 
 Phases, one line each (any failure exits non-zero):
   1. device: a CUDA card must be present; prints its name and power limit.
-  2. build:  compiles the hand-written kernels from flexlight_tpu_torch/csrc.
+  2. build:  compiles the hand-written kernels from flexlight_tpu_torch/csrc
+     (one nvcc per source, in parallel) and prints ptxas' registers, stack
+     and spills of each kernel.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at the slice's own shapes (theater 1080p primary rays and a seeded
-     random bounce wavefront for the traversal kernels; the packed planes and
-     the FXAA input of one real 1080p frame for the filter passes and FXAA).
-     Each kernel takes the same operations in the same order as its plain
-     version, so their outputs must be identical; prints the number of
-     differing values, the max abs difference and the median CUDA-event
-     time of both sides.
-  4. slice: theater at 1080p (stand-in wood texture from --seed), full
-     pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces) through
-     FlexLight(...).renderer = "pathtracer" and render_frame(); checks the
-     output, that every kernel of the path was launched, and that the frames
-     match the same frames rendered with every kernel swapped for its plain
-     version (<= 1% of pixels over 2e-3, max <= 0.5).
+     card, on the inputs one real theater 1080p frame hands it: the PRE and
+     POST kernels of scheme="fused_split" on the state block of every call
+     of a frame (5 bounces) and of one resampling PRE (2 spp); the
+     traversal kernels on the primary and shadow wavefronts of a
+     scheme="kernel" frame and on a seeded random bounce wavefront; the
+     filter passes and FXAA on the packed planes and the FXAA input of the
+     frame. Each kernel takes the same operations in the same order as its
+     plain version, so their outputs must be identical; prints the number
+     of differing values, the max abs difference, the median CUDA-event
+     time of both sides and the least time the card could take (bound).
+     The bounds of the TPU kernels not ported yet follow at the end.
+  4. main path: theater at 1080p (stand-in wood texture from --seed), full
+     pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
+     through FlexLight(...).renderer = "pathtracer" and render_frame(),
+     scheme "auto", which must resolve to "fused_split"; checks the output,
+     that each frame launched PRE once, POST five times and the filter and
+     FXAA kernels, and that the frames match the same frames rendered with
+     every kernel swapped for its plain version (<= 1% of values over 2e-3,
+     max <= 0.5).
+  5. the scheme="kernel" path: the same frame at half size (960x540 by
+     default), 2 frames, through the same entry points with the renderer's
+     scheme set to "kernel"; checks that the traversal kernels were
+     launched and the frames against their plain frames as above.
 Then one JSON line per the kernels, the card's name and power limit, and a
 last line {"ok": true, "device": {...}}.
 """
@@ -28,10 +40,55 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+
+# the least time the card could take: the H100 SXM's memory rate and its
+# fp32 rate outside the tensor cores (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations per unit of work, counted from the kernels' sources: an
+# add, multiply, divide, square root, sine, arctangent, floor, truncation,
+# compare or clamp bound counts one; selects, negations, conversions and
+# integer and address arithmetic count none, and so does work that a
+# data-dependent branch may skip (a gated tap, a first-surface update), so
+# each count is the least its inputs need.
+# One Moeller-Trumbore test (trace.cuh) needs only the non-zero terms of W's
+# rows (ops/intersect_kernel.py tri_rows: det 3, udet 9, vdet 9, sdet 3 and
+# a constant): 24 multiplies and 21 adds, the divide, the three scales,
+# u + v and 8 compares; an any hit keeps no running minimum (7 compares).
+OPS_CLOSEST_TEST = 58
+OPS_ANY_TEST = 57
+OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
+OPS_BOUNCE_PRE = 205     # fused.cu fl_bounce_pre: 55, and 50 per vertex
+OPS_SHADE = 177          # fused.cu POST up to the shadow ray, outside the light loop and noise
+OPS_FIRST_LENGTH = 21    # and, at bounce 1, the first ray length
+OPS_APPLY = 64           # fused.cu bounce_apply with next_ray_dir
+OPS_LIGHT = 148          # one light of the reservoir loop: position, fl_forward_trace (130),
+                         # weight, selection; a light that is on adds its 5 sums
+OPS_LIGHT_ON = 5
+OPS_NOISE = {"hash": (5, 8), "counter": (0, 2)}  # one noise call: (per call, per output)
+OPS_DISC_TAP = {"first_blur": 4, "second_blur": 10, "final_blur": 10}  # what every tap runs
+OPS_FXAA_PIXEL = 39      # fxaa.cu: the 3x3 luma test every pixel runs
+# The TPU kernels not ported yet (PERF.md's table, rows 6-12): launch site,
+# and the 4-byte words per ray that it passes in and out (None: the direct
+# frame's 14 channels and 7 per bounce). Their bound is these bytes at the
+# frame's rays over the memory rate; the scene-side tables, read once, are
+# left out.
+UNPORTED = (
+    (6, "ops/intersect_sparse.py:962", 7, 2),      # ray o, d, max_len; s, tri
+    (7, "ops/intersect_sparse.py:904", 7, 1),      # ray o, d, max_len; hit
+    (8, "ops/intersect_sparse.py:251", 8, 0),      # the ray stack; scene-sized tile flags
+    (9, "ops/intersect_sparse.py:578", 8, 1),      # the ray stack; sort key
+    (10, "ops/fused.py:392", 8, None),             # camera ray block; record channels
+    (11, "ops/fused.py:1467", 29 + 16, 29 + 26 + 7),  # carry, surface, tex, ndc; carry,
+                                                   # request, record (per bounce)
+    (12, "ops/fused.py:1650", 29 + 2 + 49, 29 + 1 + 26 + 7 + 4),  # carry, ndc, material
+                                                   # row; carry, m, request, record, tex
+)
 
 
 def fail(msg: str) -> None:
@@ -48,14 +105,20 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(fn, reps: int = 10, setup=None) -> float:
+    """Median CUDA-event time of fn() in ms, after one warm-up call.
+    `setup()` runs before each call, outside the timed events (it restores
+    the state that an in-place kernel overwrites)."""
     import torch
 
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -66,10 +129,39 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the float operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def golden_budget(a, b):
     """(fraction of values over 2e-3, max abs diff) of two images."""
     d = (a.float() - b.float()).abs()
     return float((d > 2e-3).float().mean()), float(d.max())
+
+
+def ptxas_usage(log: str):
+    """{kernel function: {registers, stack, spill_st, spill_ld}} from the
+    output of nvcc -Xptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            short = re.search(r"fl_[a-z0-9_]+?_kernel", m.group(1))
+            name = short.group(0) if short else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                                            spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {}).update(registers=int(m.group(1)))
+    return out
 
 
 def main() -> int:
@@ -94,118 +186,254 @@ def main() -> int:
 
 
 def drive(args, dev, smi: str) -> int:
-    """Phases 2-4 on `dev`."""
+    """Phases 2-5 on `dev`."""
+    import numpy as np
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from flexlight_tpu_torch import Config, _native, reset_global_registry
         from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+        from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
         from flexlight_tpu_torch.post.filter_kernel import byte_i
         from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
     except ImportError as exc:
-        fail(f"the flexlight packages are not importable beside this script: {exc}")
+        fail(f"the flexlight_tpu_torch package is not importable beside this script: {exc}")
+    t_start = time.perf_counter()
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    _native.library()
+    lib = _native.library()
     print(f"[build] kernels built and loaded from flexlight_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for fn, use in sorted(ptxas_usage(_native.build_log(lib)).items()):
+        print(f"[build] {fn}: {use.get('registers')} registers, {use.get('stack')} bytes "
+              f"stack, {use.get('spill_st')}/{use.get('spill_ld')} bytes spill stores/loads",
+              flush=True)
 
     w, h = args.width, args.height
     config = Config(temporal=True, temporal_samples=4, filter=True,
                     antialiasing="fxaa", samples_per_ray=1, max_reflections=5)
     texture = stand_in_wood_texture(args.seed)
 
-    def engine():
+    def engine(width, height):
         reset_global_registry()
         e = theater(texture, device=dev)
-        e.canvas = (w, h)
+        e.canvas = (width, height)
         e.config = config
         return e
 
     # ---- 3. kernels vs plain --------------------------------------------
-    # one real frame with the plain versions, recording each kernel's
-    # first inputs
+    t0 = time.perf_counter()
+
+    def clone(a):
+        return tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+
     captured = {}
 
-    def recorder(name, fn):
+    def first_call(name, fn):
         def rec(*a):
             captured.setdefault(name, a)
             return fn(*a)
         return rec
 
-    rec_set = KernelSet(*(recorder(n, f) for n, f in zip(KernelSet._fields, PLAIN)))
-    e = engine()
-    PathTracer(w, h, e.scene, e.camera, config, dev, kernels=rec_set).render_frame()
+    def every_call(name, fn):
+        """The fused kernels update the state in place: keep a copy of the
+        inputs of every call, made before it."""
+        def rec(*a):
+            captured.setdefault(name, []).append(clone(a))
+            return fn(*a)
+        return rec
+
+    # one fused_split frame and one scheme="kernel" frame with the plain
+    # versions, recording the kernels' inputs
+    rec_set = KernelSet(*(every_call(n, f) if n.startswith("sp_") else first_call(n, f)
+                          for n, f in zip(KernelSet._fields, PLAIN)))
+    e = engine(w, h)
+    tracer = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=rec_set)
+    if tracer.resolved_scheme() != "fused_split":
+        fail(f"theater resolves to scheme {tracer.resolved_scheme()!r}, not fused_split")
+    tracer.render_frame()
+    PathTracer(w, h, e.scene, e.camera, config, dev, scheme="kernel",
+               kernels=rec_set).render_frame()
+    resample = []
+
+    def sp_pre_resample(*a):
+        if a[6]:  # the `resample` argument
+            resample.append(clone(a))
+        return PLAIN.sp_pre(*a)
+
+    PathTracer(w, h, e.scene, e.camera, config.replace(samples_per_ray=2), dev,
+               kernels=PLAIN._replace(sp_pre=sp_pre_resample)).render_frame()
+    del tracer
     missing = [n for n in KernelSet._fields if n not in captured]
-    if missing:
-        fail(f"the frame did not reach {missing}")
+    if missing or len(resample) != 1:
+        fail(f"the frames did not reach {missing or 'a resampling PRE'}")
+    if len(captured["sp_pre"]) != 1 or len(captured["sp_post"]) != config.max_reflections:
+        fail(f"the frame made {len(captured['sp_pre'])} PRE and "
+             f"{len(captured['sp_post'])} POST calls, not 1 and {config.max_reflections}")
 
     results = {}
 
     def differences(ko, po, packed: bool):
         """(number of differing elements, max abs difference) of the
-        kernel's and the plain version's outputs; on packed rgba8 planes
-        the difference is the largest byte step / 255."""
+        kernel's and the plain version's outputs (NaN equals NaN); on
+        packed rgba8 planes the difference is the largest byte step / 255."""
         ko = ko if isinstance(ko, tuple) else (ko,)
         po = po if isinstance(po, tuple) else (po,)
         count, err = 0, 0.0
         for a, b in zip(ko, po):
-            count += int((a != b).sum())
+            differ = a != b
+            if a.dtype.is_floating_point:
+                differ &= ~(torch.isnan(a) & torch.isnan(b))
+            count += int(differ.sum())
             if packed:
                 step = max(int((byte_i(a, i) - byte_i(b, i)).abs().max()) for i in range(4))
                 err = max(err, step / 255.0)
-            else:
-                err = max(err, float((a.double() - b.double()).abs().max()))
+            elif count:
+                err = max(err, float((a.double() - b.double())[differ].abs().max()))
         return count, err
 
-    def check(name, label, *args_, packed=False):
+    def report(name, label, count, err, k_ms, p_ms, bnd, main: bool, extra=""):
+        print(f"[kernel] {name} ({label}): tolerance: identical to the plain version "
+              f"(same operations in the same order, no fma contraction); "
+              f"{count} values differ, max abs {err:.3g}{extra} -> "
+              f"{'ok' if count == 0 else 'FAIL'}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        prev = results.get(name)
+        if main:
+            results[name] = {"max_abs_err": max(err, prev["max_abs_err"] if prev else 0.0),
+                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                             "bound_by": bnd[1], "library_ms": None}
+        else:
+            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+        if count:
+            fail(f"{name} ({label}) disagrees with its plain version")
+
+    def check(name, label, args_, bnd, packed=False, main=True):
         """Kernel vs plain on one input: the outputs must be identical."""
         kernel_fn = lambda: getattr(KERNELS, name)(*args_)  # noqa: E731
         plain_fn = lambda: getattr(PLAIN, name)(*args_)  # noqa: E731
         count, err = differences(kernel_fn(), plain_fn(), packed)
-        k_ms = cuda_ms(kernel_fn)
-        p_ms = cuda_ms(plain_fn)
-        prev = results.get(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        results[name] = {"max_abs_err": max(prev["max_abs_err"], err),
-                         "ms": max(prev["ms"], k_ms), "plain_ms": max(prev["plain_ms"], p_ms)}
-        print(f"[kernel] {name} ({label}): tolerance: identical to the plain version "
-              f"(same operations in the same order, no fma contraction); "
-              f"{count} values differ, max abs {err:.3g} -> {'ok' if count == 0 else 'FAIL'}; "
-              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-        if count:
-            fail(f"{name} ({label}) disagrees with its plain version")
+        report(name, label, count, err, cuda_ms(kernel_fn), cuda_ms(plain_fn), bnd, main)
 
+    def check_state(name, label, args_, bnd, main=True):
+        """The same for PRE / POST, which update the state (args_[0]) in
+        place: each side runs on its own copy of the recorded state."""
+        ka, pa = clone(args_), clone(args_)
+        ko = getattr(KERNELS, name)(*ka)
+        po = getattr(PLAIN, name)(*pa)
+        count, err = differences(ko, po, False)
+        extra = ""
+        if count:
+            rows = (ko != po).any(dim=1).nonzero().flatten().tolist()
+            rays = int((ko != po).any(dim=0).sum())
+            extra = f" (state rows {rows}, {rays} rays)"
+        del ko, po, ka, pa
+        work = args_[0].clone()
+        rest = args_[1:]
+        restore = lambda: work.copy_(args_[0])  # noqa: E731
+        k_ms = cuda_ms(lambda: getattr(KERNELS, name)(work, *rest), setup=restore)
+        p_ms = cuda_ms(lambda: getattr(PLAIN, name)(work, *rest), setup=restore)
+        del work
+        report(name, label, count, err, k_ms, p_ms, bnd, main, extra)
+        return k_ms, p_ms
+
+    # PRE / POST (scheme="fused_split")
+    state0, dirs, w4, ids = captured["sp_pre"][0][:4]
+    n, tp = dirs.shape[1], w4.shape[1]
+    f32 = 4
+    check_state("sp_pre", f"primary hit + bounce_pre(0), {n} rays",
+                captured["sp_pre"][0],
+                bound((3 + F.SP_C) * f32 * n,
+                      n * (OPS_MAKE_RAY + tp * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE)))
+    check_state("sp_pre", f"resampling (2nd of 2 spp), {n} rays", resample[0],
+                bound((3 + 4 + 8 + F.SP_C) * f32 * n, n * OPS_BOUNCE_PRE), main=False)
+    post_sum = [0.0, 0.0, 0.0]
+    lights = captured["sp_post"][0][6]
+    n_lights, lights_on = lights.shape[0], int((lights[:, 1, 0] > 0).sum())
+    per_call, per_out = OPS_NOISE[config.rng]
+    for call in captured["sp_post"]:
+        i = call[-2]
+        live = int((call[0][F.SURF] > 0).sum())
+        nxt = i + 1 < config.max_reflections
+        nbytes = f32 * (n + live * (32 + 4 + 9 + 2 + 32 + (19 if nxt else 0)))
+        # the shadow ray counted at one test: the least an any hit needs
+        per_ray = (OPS_SHADE + i + (OPS_FIRST_LENGTH if i == 1 else 0)
+                   + 2 * per_call + 6 * per_out
+                   + n_lights * (OPS_LIGHT + per_call + 2 * per_out) + lights_on * OPS_LIGHT_ON
+                   + OPS_MAKE_RAY + OPS_ANY_TEST + OPS_APPLY
+                   + (OPS_MAKE_RAY + tp * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE if nxt else 0))
+        bnd = bound(nbytes, live * per_ray)
+        k_ms, p_ms = check_state("sp_post", f"bounce {i}, {live} of {n} rays live", call, bnd,
+                                 main=(i == 0))
+        post_sum = [post_sum[0] + k_ms, post_sum[1] + p_ms, post_sum[2] + bnd[0]]
+    # POST's numbers in the kernels line are per frame: the sum of its calls
+    results["sp_post"].update(ms=post_sum[0], plain_ms=post_sum[1], bound_ms=post_sum[2])
+    del captured["sp_pre"], captured["sp_post"], resample
+    torch.cuda.empty_cache()
+
+    # the traversal (scheme="kernel")
     gen = torch.Generator().manual_seed(args.seed)
     w4, ids, o3, d3, ml, edge = captured["closest_hit"]
     w4s, so3, sd3, sml = captured["any_hit"]
     n = ml.shape[0]
+
+    def closest_bound(max_len):
+        live = int((max_len > 0).sum())
+        return bound(f32 * 11 * n, n * OPS_MAKE_RAY + live * tp * OPS_CLOSEST_TEST)
+
+    def any_bound(o, d, max_len):
+        # an any hit needs at least one test per hitting ray and a full pass
+        # per live ray that hits nothing
+        hits = int(PLAIN.any_hit(w4s, o, d, max_len).sum())
+        live = int((max_len > 0).sum())
+        return bound(f32 * 7 * n + n,
+                     n * OPS_MAKE_RAY + (hits + (live - hits) * tp) * OPS_ANY_TEST)
+
     rand_o = tuple((torch.rand(n, generator=gen) * 80.0 - 40.0).to(dev) for _ in range(3))
     rd = torch.randn(3, n, generator=gen)
     rd = rd / rd.norm(dim=0)
     rand_d = tuple(c.contiguous().to(dev) for c in rd)
     rand_ml = torch.where(torch.rand(n, generator=gen) < 0.1, 0.0, POW32).to(dev)
     rand_len = (torch.rand(n, generator=gen) * 60.0).to(dev)
-    check("closest_hit", f"primary, {n} rays", w4, ids, o3, d3, ml, edge)
-    check("closest_hit", f"random bounce, {n} rays", w4, ids, rand_o, rand_d, rand_ml, BIAS)
-    check("any_hit", f"shadow, {n} rays", w4s, so3, sd3, sml)
-    check("any_hit", f"random bounce, {n} rays", w4s, rand_o, rand_d, rand_len)
-    for name in ("first_blur", "second_blur"):
-        check(name, "packed planes of the frame", *captured[name], packed=True)
-    check("final_blur", "packed planes of the frame", *captured["final_blur"])
-    check("fxaa", "FXAA input of the frame", *captured["fxaa"])
+    check("closest_hit", f"primary, {n} rays", (w4, ids, o3, d3, ml, edge), closest_bound(ml))
+    check("closest_hit", f"random bounce, {n} rays", (w4, ids, rand_o, rand_d, rand_ml, BIAS),
+          closest_bound(rand_ml), main=False)
+    check("any_hit", f"shadow, {n} rays", (w4s, so3, sd3, sml), any_bound(so3, sd3, sml))
+    check("any_hit", f"random bounce, {n} rays", (w4s, rand_o, rand_d, rand_len),
+          any_bound(rand_o, rand_d, rand_len), main=False)
 
-    # ---- 4. the slice through the user's entry points --------------------
-    e = engine()
+    # the filter passes and FXAA (of the fused_split frame)
+    p5 = captured["first_blur"][0]
+    px = p5.shape[1] * p5.shape[2]
+    check("first_blur", "packed planes of the frame", captured["first_blur"],
+          bound(px * (20 + 8), px * (37 * OPS_DISC_TAP["first_blur"])), packed=True)
+    check("second_blur", "packed planes of the frame", captured["second_blur"],
+          bound(px * (20 + 12), px * (36 * OPS_DISC_TAP["second_blur"])), packed=True)
+    check("final_blur", "packed planes of the frame", captured["final_blur"],
+          bound(px * (20 + 12), px * (37 * OPS_DISC_TAP["final_blur"])))
+    check("fxaa", "FXAA input of the frame", captured["fxaa"],
+          bound(px * (16 + 16), px * OPS_FXAA_PIXEL))
+    del captured
+    torch.cuda.empty_cache()
+    print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 4. the main path through the user's entry points ---------------
+    t0 = time.perf_counter()
+    e = engine(w, h)
     plain = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=PLAIN)
     plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(args.frames)]
     del plain
     torch.cuda.empty_cache()
 
-    e = engine()
+    e = engine(w, h)
     e.renderer = "pathtracer"
+    scheme = e.renderer.resolved_scheme()
+    print(f"[main] theater {w}x{h}: scheme 'auto' resolves to {scheme!r}", flush=True)
+    if scheme != "fused_split":
+        fail("the main path must take scheme='fused_split'")
     for k in KERNELS:
         k.launches = 0
     frames, frame_ms = [], []
@@ -216,37 +444,80 @@ def drive(args, dev, smi: str) -> int:
         frame_ms.append((time.perf_counter() - t) * 1000.0)
     launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[slice] theater {w}x{h}, {args.frames} frames: ms per frame "
-          f"{[round(x, 1) for x in frame_ms]} (median of frames 2..: "
-          f"{statistics.median(frame_ms[1:] or frame_ms):.1f} ms); peak device memory "
-          f"{peak_gb:.2f} GiB; launches {launches}", flush=True)
-    last = frames[-1]
-    if last.shape != (h, w, 3):
-        fail(f"frame shape {last.shape}")
-    import numpy as np
-
-    if not np.isfinite(last).all():
-        fail("frame has non-finite values")
-    if float(last.max()) <= 0.0:
-        fail("frame is all black")
-    idle = [name for name, c in launches.items() if c == 0]
+    per_frame = {name: c / args.frames for name, c in launches.items()}
+    print(f"[main] {args.frames} frames: ms per frame {[round(x, 1) for x in frame_ms]} "
+          f"(median of frames 2..: {statistics.median(frame_ms[1:] or frame_ms):.1f} ms); "
+          f"peak device memory {peak_gb:.2f} GiB; launches per frame {per_frame}", flush=True)
+    if per_frame["sp_pre"] != 1 or per_frame["sp_post"] != config.max_reflections:
+        fail(f"expected 1 PRE and {config.max_reflections} POST launches per frame")
+    idle = [name for name in ("sp_pre", "sp_post", "first_blur", "second_blur", "final_blur",
+                              "fxaa") if launches[name] == 0]
     if idle:
         fail(f"kernels not launched on the main path: {idle}")
-    for i, (a, b) in enumerate(zip(frames, plain_frames)):
-        frac, mx = golden_budget(torch.from_numpy(a), b)
-        print(f"[slice] frame {i}: kernels vs plain: {frac:.4%} of values over 2e-3, "
-              f"max {mx:.4f} (budget 1%, 0.5)", flush=True)
-        if frac > 0.01 or mx > 0.5:
-            fail("kernel frame outside the golden budget of the plain frame")
-    print(f"[slice] output [{h},{w},3], mean {float(last.mean()):.4f}, finite", flush=True)
 
-    if "jax" in sys.modules:
-        fail("jax was imported: the port must run without it")
+    def check_frames(label, frames, plain_frames, shape):
+        last = frames[-1]
+        if last.shape != shape:
+            fail(f"{label}: frame shape {last.shape}")
+        if not np.isfinite(last).all():
+            fail(f"{label}: frame has non-finite values")
+        if float(last.max()) <= 0.0:
+            fail(f"{label}: frame is all black")
+        for i, (a, b) in enumerate(zip(frames, plain_frames)):
+            frac, mx = golden_budget(torch.from_numpy(a), b)
+            print(f"[{label}] frame {i}: kernels vs plain: {frac:.4%} of values over 2e-3, "
+                  f"max {mx:.4f} (budget 1%, 0.5)", flush=True)
+            if frac > 0.01 or mx > 0.5:
+                fail(f"{label}: kernel frame outside the golden budget of the plain frame")
+        print(f"[{label}] output {list(last.shape)}, mean {float(last.mean()):.4f}, finite",
+              flush=True)
+
+    check_frames("main", frames, plain_frames, (h, w, 3))
+    del frames, plain_frames, e
+    torch.cuda.empty_cache()
+    print(f"[phase] main path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 5. the scheme="kernel" path --------------------------------------
+    t0 = time.perf_counter()
+    w2, h2, n2 = w // 2, h // 2, 2
+    e = engine(w2, h2)
+    plain = PathTracer(w2, h2, e.scene, e.camera, config, dev, scheme="kernel", kernels=PLAIN)
+    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(n2)]
+    del plain
+    e = engine(w2, h2)
+    e.renderer = "pathtracer"
+    e.renderer.scheme = "kernel"
+    for k in KERNELS:
+        k.launches = 0
+    frames = [e.renderer.render_frame() for _ in range(n2)]
+    kernel_launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
+    print(f"[kernel-path] theater {w2}x{h2}, scheme {e.renderer.resolved_scheme()!r}, {n2} "
+          f"frames: launches {kernel_launches}", flush=True)
+    idle = [name for name, c in kernel_launches.items() if c == 0 and not name.startswith("sp_")]
+    if idle:
+        fail(f"kernels not launched on the scheme='kernel' path: {idle}")
+    check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
+    print(f"[phase] scheme='kernel' path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
+                    or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
+    if loaded:
+        fail(f"modules of jax or flexlight_tpu were imported: {loaded[:5]}; "
+             "the port must run without them")
+    for name in ("closest_hit", "any_hit"):
+        launches[name] = kernel_launches[name]
     kernels = []
     for name, k in zip(KernelSet._fields, KERNELS):
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
                         **results[name]})
+    for row, site, w_in, w_out in UNPORTED:
+        w_out = 14 + 7 * config.max_reflections if w_out is None else w_out
+        nbytes = f32 * (w_in + w_out) * w * h
+        print(f"[bound] row {row}, flexlight_tpu/{site} (not ported): {w_in} + {w_out} words "
+              f"per ray x {w * h} rays, {nbytes / 1e6:.1f} MB, bound {bound(nbytes, 0)[0]:.4f} ms "
+              f"(bytes)", flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

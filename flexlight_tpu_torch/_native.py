@@ -1,6 +1,7 @@
 """Build, load and dispatch the hand-written CUDA kernels.
 
-The kernels under ``csrc/`` are compiled at first use with ``nvcc`` into
+The kernels under ``csrc/`` are compiled at first use with ``nvcc`` (one
+compiler process per source, all started together, then one link) into
 one shared library with a plain C interface, keyed on a hash of the
 sources and flags, inside the checkout (``build/flexlight_kernels/``, git
 ignored), and loaded with ``ctypes``. Each C entry point launches on the
@@ -33,13 +34,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "flexlight_kernels"
-SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu")
+HEADERS = ("common.cuh", "trace.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
-HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off",
-              "-DFL_EMULATE", "-x", "c++")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-ffp-contract=off", "-DFL_EMULATE",
+              "-x", "c++")
 LIB_NAME = "libflexlight_kernels.so"
+LOG_NAME = "build.log"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
@@ -55,6 +57,11 @@ SIGNATURES = {
     "fl_disc_final": [_P, _I, _I, _I, _P, _P],
     # img, h, w, out, stream
     "fl_fxaa": [_P, _I, _I, _P, _P],
+    # state, dirs, w4, tp, ids, mat, cam, resample, min_importance, n, stream
+    "fl_sp_pre": [_P, _P, _P, _I, _P, _P, _P, _I, _F, _I, _P],
+    # state, tex, ndc, w4, tp, ids, mat, lights, n_lights, cam, random_seed,
+    # cos_sample_n, bounce, do_next, counter, min_importance, n, stream
+    "fl_sp_post": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -94,6 +101,8 @@ def _open(path: Path):
 
 def build_library(build_root: Path = BUILD_ROOT, emulate: bool = False):
     """Compile the sources (once per content hash) and load the library.
+    The compiler's output (with nvcc, ptxas' registers, shared memory and
+    spills of every kernel) is kept beside it, see `build_log`.
 
     `emulate` builds them for the host with a C++ compiler instead of
     nvcc: a CPU-only library whose entry points take host pointers."""
@@ -109,15 +118,38 @@ def build_library(build_root: Path = BUILD_ROOT, emulate: bool = False):
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-        cmd = [compiler, *flags, "-I", str(CSRC), "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        tag = os.getpid()
+        # one compiler per source, all at once; then one link
+        objs = [out_dir / f".{Path(src).stem}.{tag}.o" for src in SOURCES]
+        cmds = [[compiler, *flags, "-I", str(CSRC), "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        log = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=900)
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed:\n{log[-1]}")
+        tmp = out_dir / f".{LIB_NAME}.{tag}"
+        link = [compiler, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        res = subprocess.run(link, capture_output=True, text=True, timeout=900)
+        log.append(f"$ {' '.join(link)}\n{res.stdout}{res.stderr}")
         if res.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}")
+            raise RuntimeError(f"kernel link failed:\n{log[-1]}")
+        (out_dir / LOG_NAME).write_text("".join(log))
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, lib_path)
-    return _open(lib_path)
+    lib = _open(lib_path)
+    lib.build_dir = out_dir
+    return lib
+
+
+def build_log(lib) -> str:
+    """What the compiler printed when it built `lib`."""
+    path = Path(lib.build_dir) / LOG_NAME
+    return path.read_text() if path.exists() else ""
 
 
 def library():

@@ -17,52 +17,21 @@
 // traffic. The TPU's flag prepass, octant sort and ray/triangle tiles are
 // MXU scheduling and are left out: a ray that is dead (max_len 0) can hit
 // nothing and exits at once, and an any-hit ray leaves the loop at its
-// first valid triangle.
-#include "common.cuh"
+// first valid triangle. The traversal itself (fl_block_closest /
+// fl_block_any) lives in trace.cuh, which the fused per-bounce kernels
+// (fused.cu) share.
+#include "trace.cuh"
 
-#define FL_TRI_CHUNK 64
 #define FL_RAY_BLOCK 128
 
-struct fl_ray {
-    float f[16];
-    float max_len;
-};
-
-__device__ __forceinline__ void fl_load_ray(
+__device__ __forceinline__ bool fl_load_ray(
     int i, const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ max_len, fl_ray& r) {
-    float o[3] = {ox[i], oy[i], oz[i]};
-    float d[3] = {dx[i], dy[i], dz[i]};
-    // zero directions become +z (ops/intersect_kernel.py _prep_soa)
-    float norm2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    if (norm2 <= 0.0f) { d[0] = 0.0f; d[1] = 0.0f; d[2] = 1.0f; }
-    r.f[0] = 1.0f;
-    for (int k = 0; k < 3; ++k) r.f[1 + k] = o[k];
-    for (int k = 0; k < 3; ++k) r.f[4 + k] = d[k];
-    for (int c = 0; c < 3; ++c)
-        for (int k = 0; k < 3; ++k) r.f[7 + 3 * c + k] = d[c] * o[k];
-    r.max_len = max_len[i];
-}
-
-// Stage rows [c0, c0 + cnt) of W[4, tp, 16] into shared memory.
-__device__ __forceinline__ void fl_stage(const float* __restrict__ w4, int tp,
-                                         int c0, int cnt,
-                                         float (*sw)[FL_TRI_CHUNK][16]) {
-    for (int e = threadIdx.x; e < 4 * cnt * 16; e += blockDim.x) {
-        int p = e / (cnt * 16);
-        int rem = e - p * cnt * 16;
-        int t = rem / 16;
-        int k = rem - t * 16;
-        sw[p][t][k] = w4[((size_t)p * tp + c0 + t) * 16 + k];
-    }
-}
-
-__device__ __forceinline__ float fl_dot16(const float* w, const float* f) {
-    float acc = w[0] * f[0];
-    for (int k = 1; k < 16; ++k) acc = acc + w[k] * f[k];
-    return acc;
+    fl_make_ray(fl_make3(ox[i], oy[i], oz[i]), fl_make3(dx[i], dy[i], dz[i]),
+                max_len[i], r);
+    return r.max_len > 0.0f;
 }
 
 __global__ void fl_closest_hit_kernel(
@@ -76,49 +45,13 @@ __global__ void fl_closest_hit_kernel(
     __shared__ float sw[4][FL_TRI_CHUNK][16];
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     fl_ray r;
-    bool active = false;
+    bool active = i < n && fl_load_ray(i, ox, oy, oz, dx, dy, dz, max_len, r);
+    fl_hit h = fl_block_closest(w4, tp, sw, active, r, edge);
     if (i < n) {
-        fl_load_ray(i, ox, oy, oz, dx, dy, dz, max_len, r);
-        active = r.max_len > 0.0f;
-    }
-    float best_s = FL_POW32, best_u = 0.0f, best_v = 0.0f;
-    int best_col = -1;
-    if (__syncthreads_or(active)) {
-        for (int c0 = 0; c0 < tp; c0 += FL_TRI_CHUNK) {
-            int cnt = tp - c0 < FL_TRI_CHUNK ? tp - c0 : FL_TRI_CHUNK;
-            fl_stage(w4, tp, c0, cnt, sw);
-            __syncthreads();
-            if (active) {
-                for (int t = 0; t < cnt; ++t) {
-                    float det = fl_dot16(sw[0][t], r.f);
-                    float udet = fl_dot16(sw[1][t], r.f);
-                    float vdet = fl_dot16(sw[2][t], r.f);
-                    float sdet = fl_dot16(sw[3][t], r.f);
-                    float inv = 1.0f / det;
-                    float u = udet * inv;
-                    float v = vdet * inv;
-                    float s = sdet * inv;
-                    bool valid = fabsf(det) >= FL_BIAS;
-                    valid = valid && (u >= edge) && (u <= 1.0f);
-                    valid = valid && (v >= edge) && (u + v <= 1.0f);
-                    valid = valid && (s > FL_BIAS) && (s <= r.max_len);
-                    if (valid && s < best_s) {
-                        best_s = s;
-                        best_u = u;
-                        best_v = v;
-                        best_col = c0 + t;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
-    if (i < n) {
-        bool hit = best_col >= 0;
-        s_out[i] = hit ? best_s : 0.0f;
-        u_out[i] = hit ? best_u : 0.0f;
-        v_out[i] = hit ? best_v : 0.0f;
-        tri_out[i] = hit ? ids[best_col] : -1;
+        s_out[i] = h.s;
+        u_out[i] = h.u;
+        v_out[i] = h.v;
+        tri_out[i] = h.col >= 0 ? ids[h.col] : -1;
     }
 }
 
@@ -131,38 +64,8 @@ __global__ void fl_any_hit_kernel(
     __shared__ float sw[4][FL_TRI_CHUNK][16];
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     fl_ray r;
-    bool active = false;
-    if (i < n) {
-        fl_load_ray(i, ox, oy, oz, dx, dy, dz, max_len, r);
-        active = r.max_len > 0.0f;
-    }
-    bool hit = false;
-    for (int c0 = 0; c0 < tp; c0 += FL_TRI_CHUNK) {
-        // leave together once no ray of the block is still searching
-        if (!__syncthreads_or(active && !hit)) break;
-        int cnt = tp - c0 < FL_TRI_CHUNK ? tp - c0 : FL_TRI_CHUNK;
-        fl_stage(w4, tp, c0, cnt, sw);
-        __syncthreads();
-        if (active && !hit) {
-            for (int t = 0; t < cnt; ++t) {
-                float det = fl_dot16(sw[0][t], r.f);
-                float udet = fl_dot16(sw[1][t], r.f);
-                float vdet = fl_dot16(sw[2][t], r.f);
-                float sdet = fl_dot16(sw[3][t], r.f);
-                float inv = 1.0f / det;
-                float u = udet * inv;
-                float v = vdet * inv;
-                float s = sdet * inv;
-                // front-face culled (glsl:143-158)
-                bool valid = det >= FL_BIAS;
-                valid = valid && (u >= FL_BIAS) && (u <= 1.0f);
-                valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
-                valid = valid && (s > FL_BIAS) && (s <= r.max_len);
-                if (valid) { hit = true; break; }
-            }
-        }
-        __syncthreads();
-    }
+    bool active = i < n && fl_load_ray(i, ox, oy, oz, dx, dy, dz, max_len, r);
+    bool hit = fl_block_any(w4, tp, sw, active, r);
     if (i < n) hit_out[i] = hit ? 1 : 0;
 }
 

@@ -8,6 +8,9 @@ including its dropped-attachment quirks (`_filter_chain_packed`).
 The hand-written kernels of the frame come in a `KernelSet`: `KERNELS`
 (the default) holds the kernel wrappers, `PLAIN` their plain PyTorch
 versions, which run the same frame without any kernel of this package.
+A frame launches the traversal kernels (scheme="kernel") or the fused
+PRE / POST kernels (scheme="fused_split"), and the filter and FXAA
+kernels either way.
 """
 
 from __future__ import annotations
@@ -18,10 +21,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from flexlight_tpu.config import Config
-from flexlight_tpu.utils.metrics import FrameMetrics, frame_record
-
+from ..config import Config
 from ..ops.buffers import build_scene_buffers
+from ..ops.fused import fused_split_eligible
+from ..ops.fused_kernel import sp_post, sp_pre
 from ..ops.intersect_kernel import any_hit, closest_hit
 from ..ops.pathtrace import render_mrt
 from ..post.common import quantize_rgba8, split_hdr
@@ -30,6 +33,7 @@ from ..post.filter_kernel import (final_blur, final_filter_packed, first_blur,
                                   second_filter_packed, tileize_blur_key_packed)
 from ..post.fxaa_kernel import fxaa_cuda
 from ..post.temporal import TemporalState, push_frame, temporal_average
+from ..utils.metrics import FrameMetrics, frame_record
 
 
 class KernelSet(NamedTuple):
@@ -40,10 +44,12 @@ class KernelSet(NamedTuple):
     second_blur: Callable
     final_blur: Callable
     fxaa: Callable
+    sp_pre: Callable
+    sp_post: Callable
 
 
 KERNELS = KernelSet(closest_hit, any_hit, first_blur, second_blur, final_blur,
-                    fxaa_cuda)
+                    fxaa_cuda, sp_pre, sp_post)
 PLAIN = KernelSet(*(k.plain for k in KERNELS))
 
 
@@ -200,11 +206,17 @@ class PathTracer:
         self._transform_registry = None
 
     def resolved_scheme(self) -> str:
-        """The traversal scheme a frame runs. flexlight_tpu's auto dispatch
-        picks fused_split on a TPU; its kernels are not ported yet, so the
-        port's auto scheme is "kernel"."""
-        if self.scheme in ("auto", "kernel"):
-            return "kernel"
+        """The scheme a frame runs. "auto" takes flexlight_tpu's rule on a
+        chip (models/pathtracer.py:355-370) on every device: "fused_split"
+        for scenes within its caps (<= 1024 triangles, <= 256 lights), else
+        "kernel" (flexlight_tpu's "sparse" above 4096 triangles is not
+        ported yet)."""
+        if self.scheme == "auto":
+            if self._buffers is None:
+                self.update_scene()
+            return "fused_split" if fused_split_eligible(self._buffers) else "kernel"
+        if self.scheme in ("kernel", "fused_split"):
+            return self.scheme
         raise NotImplementedError(
             f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 2)")
 
@@ -222,7 +234,7 @@ class PathTracer:
         when nothing moved. The key holds the registry object itself, so a
         registry made after reset_global_registry() never matches a stale
         key by a reused address."""
-        from flexlight_tpu.scene.transform import global_registry
+        from ..scene.transform import global_registry
 
         reg = global_registry()
         if self._transform_registry is reg and self._transform_version == reg.version:

@@ -23,7 +23,7 @@ def pow5(x: torch.Tensor) -> torch.Tensor:
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] rows to unit length."""
-    n = torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+    n = v3.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
                    + v[..., 2] * v[..., 2])
     return v / torch.clamp_min(n, 1e-30)[..., None]
 

@@ -1,7 +1,7 @@
 """Device scene buffers.
 
 The flattened scene as tensors on one device: the input contract between
-the host scene layer (flexlight_tpu.scene, shared by import) and every
+the host scene layer (flexlight_tpu_torch.scene) and every
 kernel. Field for field the same as flexlight_tpu/ops/buffers.py:
 
 - geometry [S, 12], attributes [S, 28] (scene.js:294-298, 636-641)
@@ -151,7 +151,7 @@ def fetch_tex_val_table(table: AtlasTable, u, v, tex_num, default3):
 def build_scene_buffers(scene, device, registry=None) -> SceneBuffers:
     """Flatten a host Scene into tensors on `device` (the updateScene
     equivalent, pathtracerWGL2.js:167-189)."""
-    from flexlight_tpu.scene.transform import global_registry
+    from ..scene.transform import global_registry
 
     built = scene.generate_arrays()
     registry = registry or global_registry()

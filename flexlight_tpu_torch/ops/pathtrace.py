@@ -8,15 +8,22 @@ the 6-target MRT contract (glsl:601-646) in float32.
 
 The bounce is kept as the reference's stage split, bounce_carry_init ->
 bounce_pre -> bounce_tex -> bounce_shade -> bounce_apply -> bounce_commit
-(composed by bounce_post), so a fused per-bounce kernel can be held
-against it stage by stage. Shading is plain tensor code; the traversals
-go through the closest-hit / any-hit kernels of ops.intersect_kernel.
+(composed by bounce_post). scheme="kernel" runs it as plain tensor code
+with the traversals in the closest-hit / any-hit kernels of
+ops.intersect_kernel; scheme="fused_split" (ops.fused) runs everything
+but bounce_tex in two fused kernels whose plain versions are built from
+the same stages.
+
+The carry has no counterpart of flexlight_tpu's `original_id_acc`: no
+render target reads it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import vec3 as v3
@@ -57,6 +64,14 @@ def combine_normal_rme_soa(n3, rough, metal, emis):
     theta = torch.atan2(n3[0], n3[1]) * INV_PI * 0.5 + 0.5
     return (to_4bit_representation(phi, theta), rough,
             to_4bit_representation(metal, emis))
+
+
+def sample_cos(s: int) -> float:
+    """cos(s), the noise phase of sample `s` (glsl:611-612), as the
+    float32 nearest to the true value, computed on the host: torch's
+    float32 cos is an ulp off at s = 1, and the counter RNG hashes the
+    phase's bits, so an ulp changes every random number of the sample."""
+    return float(np.float32(math.cos(s)))
 
 
 def inverse_view(view_matrix) -> torch.Tensor:
@@ -201,7 +216,6 @@ class BounceCarry(NamedTuple):
     dont_filter: torch.Tensor
     final_color: tuple
     render_id: tuple
-    original_id_acc: tuple
     glass: torch.Tensor
     original_rme_x: torch.Tensor
     original_tpo_x: torch.Tensor
@@ -240,16 +254,14 @@ def bounce_carry_init(primary_parts, camera_pos, direction3, aux) -> BounceCarry
     ps, pu, pv, ptri = primary_parts
     zero = torch.zeros_like(ps)
     one = torch.ones_like(ps)
-    (render_id, original_id_acc, glass, original_rme_x, original_tpo_x,
-     first_ray_length) = aux
+    render_id, glass, original_rme_x, original_tpo_x, first_ray_length = aux
     ray_origin = tuple(camera_pos[c].expand(ps.shape) for c in range(3))
     return BounceCarry(
         alive=ptri != -1, tri=torch.clamp_min(ptri, 0), hs=ps, hu=pu, hv=pv,
         ray_origin=ray_origin, ray_dir=direction3, last_hit_point=ray_origin,
         importancy=(one, one, one), original_color=(one, one, one),
         dont_filter=torch.ones_like(ps, dtype=torch.bool),
-        final_color=(zero, zero, zero), render_id=render_id,
-        original_id_acc=original_id_acc, glass=glass,
+        final_color=(zero, zero, zero), render_id=render_id, glass=glass,
         original_rme_x=original_rme_x, original_tpo_x=original_tpo_x,
         first_ray_length=first_ray_length)
 
@@ -283,7 +295,7 @@ def bounce_pre(carry: BounceCarry, i: int, mat, config):
         smooth_normal = v3.add3(smooth_normal, v3.scale3(wn, uvw[k]))
         # tan(acos(x)) = sqrt(1-x^2)/x: shadow-acne offset (glsl:516-518)
         cos_a = torch.abs(torch.clamp(v3.dot3(geometry_normal, wn), -1.0, 1.0))
-        tan_a = torch.clamp(torch.sqrt(1.0 - cos_a * cos_a) / cos_a, 0.0, 1.0)
+        tan_a = torch.clamp(v3.sqrt(1.0 - cos_a * cos_a) / cos_a, 0.0, 1.0)
         diff = v3.norm3(v3.sub3(ray_origin, wv[k]))
         geometry_offset = geometry_offset + diff * tan_a * uvw[k]
         bary_u = bary_u + rowt[21 + 2 * k] * uvw[k]
@@ -366,11 +378,6 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i: int,
     scale_i = 2.0 ** -i
     render_id = tuple(carry.render_id[c] + torch.where(df, scale_i * idu[c], 0.0)
                       for c in range(3)) + (carry.render_id[3],)
-    original_id_acc = carry.original_id_acc
-    if i == 0:
-        original_id_acc = tuple(
-            original_id_acc[c] + torch.where(df, scale_i * idu[c], 0.0)
-            for c in range(3)) + (original_id_acc[3],)
     new_dont_filter = ((rough < 0.01) & is_solid) | ~is_solid
     is_glass = is_solid & (tpo[0] > 0.01)
     glass = torch.where(df & is_glass, carry.glass + 1.0, carry.glass)
@@ -395,8 +402,7 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i: int,
 
     carry = carry._replace(
         importancy=importancy, original_color=original_color,
-        dont_filter=dont_filter, original_id_acc=original_id_acc,
-        glass=glass, original_rme_x=original_rme_x,
+        dont_filter=dont_filter, glass=glass, original_rme_x=original_rme_x,
         original_tpo_x=original_tpo_x, first_ray_length=first_ray_length,
         render_id=render_id)
     return carry, ShadeRequest(
@@ -416,7 +422,7 @@ def next_ray_dir(req: ShadeRequest, tpo):
     inv_eta = 1.0 / tpo[2]
     eta = inv_eta + (tpo[2] - inv_eta) * torch.clamp_min(req.sign_dir, 0.0)
     k = 1.0 - eta * eta * (1.0 - n_dot_i * n_dot_i)
-    refr_coef = eta * n_dot_i + torch.sqrt(torch.clamp_min(k, 0.0))
+    refr_coef = eta * n_dot_i + v3.sqrt(torch.clamp_min(k, 0.0))
     refracted = v3.where3(
         k < 0.0, (zero, zero, zero),
         v3.sub3(v3.scale3(ray_dir, eta), v3.scale3(smooth_normal, refr_coef)))
@@ -488,8 +494,8 @@ def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
                             shadow_soa)
     final_color = tuple(carry.final_color[c] + carry.importancy[c] * buffers.ambient[c]
                         for c in range(3))
-    aux = (carry.render_id, carry.original_id_acc, carry.glass,
-           carry.original_rme_x, carry.original_tpo_x, carry.first_ray_length)
+    aux = (carry.render_id, carry.glass, carry.original_rme_x,
+           carry.original_tpo_x, carry.first_ray_length)
     return final_color, carry.original_color, carry.original_tpo_x, aux
 
 
@@ -503,15 +509,24 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     """Full primary + bounce render to the MRT contract (glsl:601-646).
     Returns flat [N = H*W] per-pixel outputs.
 
-    Only scheme="kernel" is ported: the dense closest-hit / any-hit
-    kernels (`kernels.closest_hit`, `kernels.any_hit`; default the CUDA
-    kernel wrappers of ops.intersect_kernel; any object with those two
-    attributes, such as models.pathtracer.PLAIN). The other schemes of
+    scheme="kernel": the bounce loop as plain tensor code around the dense
+    closest-hit / any-hit kernels (`kernels.closest_hit`,
+    `kernels.any_hit`; default the CUDA kernel wrappers of
+    ops.intersect_kernel). scheme="fused_split": the per-bounce PRE / POST
+    kernels of ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
+    ops.fused_kernel's wrappers). `kernels` may be any object with those
+    attributes, such as models.pathtracer.PLAIN. The other schemes of
     flexlight_tpu are listed in ROADMAP.md."""
+    if scheme == "fused_split":
+        from .fused import render_mrt_fused_split
+
+        return render_mrt_fused_split(buffers, width, height, camera_pos,
+                                      view_matrix, config, random_seed,
+                                      kernels=kernels)
     if scheme != "kernel":
         raise NotImplementedError(
             f"scheme={scheme!r} is not ported yet (ROADMAP.md, Queue 2); "
-            "the port renders with scheme='kernel'")
+            "the port renders with scheme='kernel' or 'fused_split'")
     from . import intersect_kernel
 
     kernels = intersect_kernel if kernels is None else kernels
@@ -541,30 +556,41 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     # primaries replace the reference's watertight raster pass, so they take
     # the relaxed edge window; bounce rays keep the exact +BIAS window
     primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
-    covered = primary_parts[3] != -1
 
     zero = torch.zeros_like(primary_parts[0])
     one = torch.ones_like(zero)
     aux = ((zero, zero, zero, zero),   # render_id
-           (zero, zero, zero, zero),   # original_id accumulation
            zero, zero, zero,           # glassFilter, originalRMEx, originalTPOx
            one)                        # firstRayLength
     total = (zero, zero, zero)
     for s in range(config.samples_per_ray):
-        cos_sample_n = torch.cos(f32(float(s), zero))
+        cos_sample_n = f32(sample_cos(s), zero)
         color, original_color, original_tpo_x, aux = light_trace(
             buffers, mat, primary_parts, camera_pos, direction3, ndc2,
             cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux)
         total = v3.add3(total, color)
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
+    return assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
+                        original_color, aux)
 
-    render_id, _, glass, original_rme_x, original_tpo_x, first_ray_length = aux
+
+def assemble_mrt(buffers: SceneBuffers, camera_pos, primary_uvt, final_color,
+                 original_color, aux) -> MRT:
+    """The render targets of glsl:601-646 from the bounce loop's results:
+    `primary_uvt` = (u, v, tri) of the primary hit (tri -1 on a miss),
+    `final_color` averaged over the samples, `original_color` and `aux`
+    (render_id 4-tuple, glass, originalRMEx, originalTPOx, firstRayLength)
+    of the last sample. Uncovered pixels are zero."""
+    pu, pv, ptri = primary_uvt
+    render_id, glass, original_rme_x, original_tpo_x, first_ray_length = aux
+    covered = ptri != -1
+    zero = torch.zeros_like(pu)
+    dev = zero.device
     rid3 = render_id[3] + INV_255  # glsl:637
 
     # primary-hit local position for the location id channel (glsl:641-642)
-    lrow = fetch_rows_t(buffers.geometry, torch.clamp_min(primary_parts[3], 0))
-    puvw = (1.0 - primary_parts[1] - primary_parts[2], primary_parts[1],
-            primary_parts[2])
+    lrow = fetch_rows_t(buffers.geometry, torch.clamp_min(ptri, 0))
+    puvw = (1.0 - pu - pv, pu, pv)
     rel_pos = (zero, zero, zero)
     for k in range(3):
         lv = (lrow[3 * k], lrow[3 * k + 1], lrow[3 * k + 2])
@@ -592,4 +618,3 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         location_id=torch.where(covf, location_id4, zero4),
         alpha=cov.to(torch.float32),
     )
-

@@ -50,8 +50,16 @@ def cross3(a: V3, b: V3) -> V3:
             a[0] * b[1] - a[1] * b[0])
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The shading's square root. Its own function so that a test can put a
+    correctly rounded one in its place: CUDA's sqrtf, which the kernels
+    and torch on the card use, is correctly rounded, and torch's float32
+    sqrt on the CPU is an ulp off for ~1% of inputs."""
+    return torch.sqrt(x)
+
+
 def norm3(a: V3) -> torch.Tensor:
-    return torch.sqrt(dot3(a, a))
+    return sqrt(dot3(a, a))
 
 
 def normalize3(a: V3) -> V3:

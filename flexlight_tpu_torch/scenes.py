@@ -5,22 +5,28 @@ the reference's examples/theater.js: 9 lights, wood-textured floor,
 striped metallic back mirror), on the port's engine, taking the floor
 texture as an argument: the original loads textures/holz.jpg, which this
 repository does not carry. `stand_in_wood_texture` makes a stand-in of the
-same size from a seed.
+same size from a seed. Given another engine (`engine=`, such as
+flexlight_tpu's FlexLight), `theater` builds the same scene with that
+engine's own classes, so a test can flatten both packages' scenes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from flexlight_tpu.scene.scene import Texture
-
 from .engine import FlexLight
+from .scene.scene import Texture
 
 
 def stand_in_wood_texture(seed: int) -> Texture:
-    """A 512 x 512 wood-grain texture from `seed`: warped rings plus grain
-    noise, stored as k * f32(1/255) like an image texture (so its atlas
-    table keeps it as exact bytes)."""
+    """`stand_in_wood_data(seed)` as a Texture."""
+    return Texture(stand_in_wood_data(seed))
+
+
+def stand_in_wood_data(seed: int) -> np.ndarray:
+    """A 512 x 512 x 3 float32 wood-grain image from `seed`: warped rings
+    plus grain noise, stored as k * f32(1/255) like an image texture (so
+    its atlas table keeps it as exact bytes)."""
     size = 512
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:size, 0:size].astype(np.float64) / size
@@ -33,14 +39,17 @@ def stand_in_wood_texture(seed: int) -> Texture:
     base = np.array([0.62, 0.40, 0.22])
     rgb = np.clip(shade[..., None] * base, 0.0, 1.0)
     q = np.round(rgb * 255.0).astype(np.float32)
-    return Texture(q * np.float32(1.0 / 255.0))
+    return q * np.float32(1.0 / 255.0)
 
 
-def theater(texture: Texture, device) -> FlexLight:
-    """examples/theater.py:build_scene on flexlight_tpu_torch.FlexLight, with
-    `texture` as the floor's wood. Returns the engine (canvas 192 x 192;
-    set `engine.canvas` and `engine.renderer = "pathtracer"` to render)."""
-    engine = FlexLight((192, 192), device=device)
+def theater(texture: Texture, device=None, engine=None):
+    """examples/theater.py:build_scene with `texture` as the floor's wood,
+    on a new flexlight_tpu_torch.FlexLight on `device`, or on `engine` (a
+    FlexLight of either package with a canvas of 192 x 192; `texture` is
+    then that package's Texture). Returns the engine (set `engine.canvas`
+    and `engine.renderer = "pathtracer"` to render)."""
+    if engine is None:
+        engine = FlexLight((192, 192), device=device)
     engine.io = "web"
     camera = engine.camera
     scene = engine.scene

@@ -17,33 +17,26 @@ from flexlight_tpu.ops import brdf as jbrdf  # noqa: E402
 from flexlight_tpu.ops import buffers as jbuf  # noqa: E402
 from flexlight_tpu.ops import rng as jrng  # noqa: E402
 from flexlight_tpu.ops.geometry import world_geometry as jworld  # noqa: E402
+from flexlight_tpu.scene.scene import Texture as JaxTexture  # noqa: E402
 from flexlight_tpu.scene.transform import reset_global_registry  # noqa: E402
+from flexlight_tpu_torch import Texture  # noqa: E402
+from flexlight_tpu_torch import reset_global_registry as reset_port_registry  # noqa: E402
 from flexlight_tpu_torch.ops import brdf as tbrdf  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
 from flexlight_tpu_torch.ops import rng as trng  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry as tworld  # noqa: E402
-from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater  # noqa: E402
+from flexlight_tpu_torch.scenes import stand_in_wood_data, stand_in_wood_texture, theater  # noqa: E402
+from tests.test_torch_scene_copy import both_buffers  # noqa: E402
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
-def _example_scene(name):
-    sys.path.insert(0, EXAMPLES)
-    import importlib
-
-    engine = importlib.import_module(name).build_scene()
-    engine = engine[0] if isinstance(engine, tuple) else engine
-    return engine.scene
-
-
-def _scene(name):
-    if name == "cornell":
-        from tests.scenes import cornell_scene
-
-        return cornell_scene()[0]
-    if name == "theater":
-        return theater(stand_in_wood_texture(0), device="cpu").scene
-    return _example_scene(name)
+def _buffers(name):
+    """(port SceneBuffers on the CPU, flexlight_tpu SceneBuffers) of the
+    scene `name`, each built with its own package's classes (each package
+    keeps its own transform registry)."""
+    jb, tb, _ = both_buffers(name)
+    return tb, jb
 
 
 def assert_buffers_equal(tb, jb):
@@ -61,12 +54,11 @@ def assert_buffers_equal(tb, jb):
 
 @pytest.mark.parametrize("name", ["cornell", "example2", "emissive", "wave", "theater"])
 def test_buffers_match_reference_field_for_field(name):
-    scene = _scene(name)
-    assert_buffers_equal(tbuf.build_scene_buffers(scene, "cpu"), jbuf.build_scene_buffers(scene))
+    assert_buffers_equal(*_buffers(name))
 
 
 def test_buffers_from_numpy_carries_the_reference_buffers():
-    jb = jbuf.build_scene_buffers(_scene("theater"))
+    _, jb = _buffers("theater")
     tb = tbuf.buffers_from_numpy(jax.tree.map(np.asarray, jb), "cpu")
     assert_buffers_equal(tb, jb)
     assert tb.albedo_tab.texels.dtype == torch.uint8  # stand-in wood stays exact bytes
@@ -80,13 +72,14 @@ def test_theater_scene_pins_to_the_example(monkeypatch):
     import common
     import theater as example_theater
 
-    wood = stand_in_wood_texture(3)
-    monkeypatch.setattr(common, "load_texture", lambda path: wood)
-    monkeypatch.setattr(example_theater, "load_texture", lambda path: wood)
+    wood = stand_in_wood_data(3)
+    jwood = JaxTexture(wood)
+    monkeypatch.setattr(common, "load_texture", lambda path: jwood)
+    monkeypatch.setattr(example_theater, "load_texture", lambda path: jwood)
     reset_global_registry()
     ref = jbuf.build_scene_buffers(example_theater.build_scene().scene)
-    reset_global_registry()
-    got = tbuf.build_scene_buffers(theater(wood, device="cpu").scene, "cpu")
+    reset_port_registry()
+    got = tbuf.build_scene_buffers(theater(Texture(wood), device="cpu").scene, "cpu")
     assert_buffers_equal(got, ref)
 
 
@@ -103,9 +96,8 @@ def test_stand_in_texture_is_seeded_and_byte_exact():
 def test_world_geometry_matches(name):
     """The transform bake: 3-term products written out in XLA's order,
     so equal to float32 rounding (1e-5 relative)."""
-    scene = _scene(name)
-    tb = tbuf.build_scene_buffers(scene, "cpu")
-    ref = np.asarray(jworld(jbuf.build_scene_buffers(scene)))
+    tb, jb = _buffers(name)
+    ref = np.asarray(jworld(jb))
     np.testing.assert_allclose(tworld(tb).numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
@@ -175,9 +167,7 @@ def test_forward_trace_matches():
 def test_atlas_fetch_matches_including_u8_texels():
     """The compact-table fetch returns the reference's values exactly (u8
     texels reconstruct as k * f32(1/255)); misses take the default."""
-    scene = _scene("theater")
-    jb = jbuf.build_scene_buffers(scene)
-    tb = tbuf.build_scene_buffers(scene, "cpu")
+    tb, jb = _buffers("theater")
     rng = np.random.default_rng(4)
     n = 4096
     u, v = _rand(rng, n, -0.5, 1.5), _rand(rng, n, -0.5, 1.5)

@@ -8,13 +8,15 @@ Run on a machine with a card:
 Expected agreement is bit for bit (the kernels take the plain versions'
 operations in the same order, built without FMA contraction), except the
 final pass and FXAA, whose few divisions by constants torch may round
-differently on the card (1e-5)."""
+differently on the card (1e-5). The fused PRE / POST kernels update their
+state in place, so each side gets its own copy of the recorded state and
+the two states must be identical."""
 
 import numpy as np
 import pytest
 import torch
 
-from flexlight_tpu import Config
+from flexlight_tpu_torch import Config
 
 pytestmark = pytest.mark.gpu
 
@@ -26,10 +28,15 @@ def dev():
     return torch.device("cuda:0")
 
 
+def _clone(args):
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
 @pytest.fixture(scope="module")
 def frame(dev):
-    """One 96x64 theater frame with the plain versions, recording each
-    kernel's first inputs; and the frame itself."""
+    """One 96x64 theater frame with the plain versions on each scheme
+    ("auto", which is fused_split for theater, and "kernel"), recording
+    each kernel's first inputs; and the frames themselves."""
     from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
     from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
 
@@ -37,7 +44,7 @@ def frame(dev):
 
     def recorder(name, fn):
         def rec(*a):
-            captured.setdefault(name, a)
+            captured.setdefault(name, _clone(a))
             return fn(*a)
         return rec
 
@@ -45,39 +52,47 @@ def frame(dev):
     e = theater(stand_in_wood_texture(0), device=dev)
     cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
                  samples_per_ray=1, max_reflections=5)
-    img = PathTracer(96, 64, e.scene, e.camera, cfg, dev, kernels=kernels).render_frame()
-    return captured, img, e, cfg
+    imgs = {scheme: PathTracer(96, 64, e.scene, e.camera, cfg, dev, scheme=scheme,
+                               kernels=kernels).render_frame()
+            for scheme in ("auto", "kernel")}
+    return captured, imgs, e, cfg
 
 
 @pytest.mark.parametrize("name", ["closest_hit", "any_hit", "first_blur", "second_blur",
-                                  "final_blur", "fxaa"])
+                                  "final_blur", "fxaa", "sp_pre", "sp_post"])
 def test_kernel_matches_plain_on_the_card(frame, name):
     from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
 
     captured = frame[0]
     kernel = getattr(KERNELS, name)
     before = kernel.launches
-    got = kernel(*captured[name])
-    ref = getattr(PLAIN, name)(*captured[name])
+    got = kernel(*_clone(captured[name]))
+    ref = getattr(PLAIN, name)(*_clone(captured[name]))
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     for a, b in zip(got, ref):
         assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
-        if a.dtype.is_floating_point:
+        if name.startswith("sp_"):
+            assert torch.equal(a, b)
+        elif a.dtype.is_floating_point:
             torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
         else:
             assert torch.equal(a, b)
 
 
-def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PathTracer
+@pytest.mark.parametrize("scheme", ["auto", "kernel"])
+def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
 
-    _, plain_img, e, cfg = frame
+    _, plain_imgs, e, cfg = frame
     counts = [k.launches for k in KERNELS]
-    img = PathTracer(96, 64, e.scene, e.camera, cfg, dev).render_frame()
-    assert all(k.launches > c for k, c in zip(KERNELS, counts))
+    tracer = PathTracer(96, 64, e.scene, e.camera, cfg, dev, scheme=scheme)
+    img = tracer.render_frame()
+    ran = {n for n, k, c in zip(KernelSet._fields, KERNELS, counts) if k.launches > c}
+    traversal = {"sp_pre", "sp_post"} if scheme == "auto" else {"closest_hit", "any_hit"}
+    assert ran == traversal | {"first_blur", "second_blur", "final_blur", "fxaa"}
     assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
-    d = np.abs(img - plain_img)
+    d = np.abs(img - plain_imgs[scheme])
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5

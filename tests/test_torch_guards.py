@@ -1,4 +1,4 @@
-"""Guards of flexlight_tpu_torch: it never loads jax, takes its device
+"""Guards of flexlight_tpu_torch: it never loads jax or flexlight_tpu, takes its device
 explicitly and never falls back to a plain version on a device tensor,
 chip_smoke.py refuses to run without a card, the ported surface raises
 for what is not ported, and the transform-upload cache cannot be fooled
@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from flexlight_tpu import Config
-from flexlight_tpu.scene.transform import global_registry, reset_global_registry
+from flexlight_tpu_torch import Config
+from flexlight_tpu_torch.scene.transform import global_registry, reset_global_registry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,23 +24,30 @@ def _run(code):
 
 
 def test_port_and_a_cpu_frame_never_import_jax():
+    """Importing the port and rendering a CPU frame on both schemes loads
+    no module of jax and none of flexlight_tpu: the port keeps its own copy
+    of what it uses."""
     code = """
 import sys
 import flexlight_tpu_torch as port
+from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
-from flexlight_tpu import Config
 e = theater(stand_in_wood_texture(0), device="cpu")
 e.canvas = (16, 12)
-e.config = Config(temporal=True, temporal_samples=2, filter=True, antialiasing="fxaa",
-                  max_reflections=2)
+e.config = port.Config(temporal=True, temporal_samples=2, filter=True, antialiasing="fxaa",
+                       max_reflections=2)
 e.renderer = "pathtracer"
 img = e.renderer.render_frame()
 assert img.shape == (12, 16, 3)
-print("jax" in sys.modules, any(m.startswith("jax.") or m.startswith("jaxlib") for m in sys.modules))
+assert e.renderer.metrics.last["scheme"] == "fused_split"
+pt = PathTracer(16, 12, e.scene, e.camera, e.config, "cpu", scheme="kernel")
+assert pt.render_frame().shape == (12, 16, 3)
+print("jax" in sys.modules, any(m.startswith("jax.") or m.startswith("jaxlib") for m in sys.modules),
+      sorted(m for m in sys.modules if m == "flexlight_tpu" or m.startswith("flexlight_tpu.")))
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["False", "False"]
+    assert res.stdout.split() == ["False", "False", "[]"]
 
 
 def test_chip_smoke_fails_clearly_without_a_card(tmp_path):
@@ -75,6 +82,8 @@ def test_device_tensor_call_raises_instead_of_falling_back(monkeypatch):
         KERNELS.fxaa(torch.empty(2, 2, 4, device="meta"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         KERNELS.any_hit(torch.empty(4, 1, 16, device="meta"), (meta,) * 3, (meta,) * 3, meta)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        KERNELS.sp_post(torch.empty(55, 4, device="meta"), *(None,) * 11)
     assert all(k.launches == 0 for k in KERNELS)
 
 
@@ -88,11 +97,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def _engine(device="cpu"):
+    """Cornell on the port's engine, built with the port's classes."""
     import flexlight_tpu_torch as port
-    from tests.scenes import cornell_scene
 
     e = port.FlexLight((8, 8), device=device)
-    e.scene, e.camera = cornell_scene()
+    reset_global_registry()
+    e.scene = port.Scene()
+    e.scene.primaryLightSources = [[0, 4, 0]]
+    bottom = e.scene.Plane([-5, -5, -21], [5, -5, -21], [5, -5, 5], [-5, -5, 5])
+    back = e.scene.Plane([-5, -5, 5], [5, -5, 5], [5, 5, 5], [-5, 5, 5])
+    e.scene.queue.push([e.scene.Cuboid(-3, -1.5, -5, -2, -1, 1)], [bottom, back])
+    e.camera = port.Camera()
+    e.camera.z = -20
     e.config = Config(temporal=False, filter=False, antialiasing=None, max_reflections=1)
     return e
 
@@ -110,7 +126,7 @@ def test_unported_surface_raises():
     e.config = e.config.replace(antialiasing="taa")
     with pytest.raises(NotImplementedError, match="taa"):
         e.renderer.render_frame()
-    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="fused_split")
+    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="sparse")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.render_frame()
 

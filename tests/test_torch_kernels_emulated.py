@@ -5,19 +5,37 @@ PyTorch versions on the slice's kinds of input.
 
 The kernels are written to take the plain versions' float operations in
 the same order (and are built without FMA contraction), so the expected
-agreement is bit for bit. The one exception is the final pass's gamma
-curve: the host's powf and torch's pow may differ by an ulp (1e-6).
-On the card, chip_smoke.py holds the same comparison at 1080p."""
+agreement is bit for bit. The exceptions are the host's libm against
+torch's CPU kernels, which the card does not share:
+- the final pass's gamma curve: the host's powf and torch's pow may
+  differ by an ulp (1e-6);
+- the square root: the kernels' sqrtf is correctly rounded (as torch's is
+  on the card), torch's float32 sqrt on the CPU is an ulp off for ~0.6% of
+  inputs, so the fused-kernel tests put a correctly rounded sqrt into the
+  plain versions (`exact_sqrt`) and then ask for identity;
+- the hash RNG's sin: the host's sinf is not torch's CPU sin, and the
+  hash amplifies an ulp into another random number (at 16 px through the
+  whole denoise chain, 38% of the frame's values then move past 2e-3), so
+  under rng="hash" the plain versions take the host's sinf (`host_sin`),
+  as the hash tests against flexlight_tpu take its sin, and the kernels
+  must again be identical to them.
+On the card, chip_smoke.py holds the same comparisons at 1080p."""
 
+import ctypes
+import ctypes.util
 import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from flexlight_tpu_torch import _native
+from flexlight_tpu_torch import Config, _native
 from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
+from flexlight_tpu_torch.ops import fused as F
+from flexlight_tpu_torch.ops import fused_kernel as SK
 from flexlight_tpu_torch.ops import intersect_kernel as IK
+from flexlight_tpu_torch.ops import rng
+from flexlight_tpu_torch.ops import vec3 as v3
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32
 from flexlight_tpu_torch.post import filter_kernel as FK
 from flexlight_tpu_torch.post import fxaa_kernel as XK
@@ -35,9 +53,8 @@ def lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def frame_inputs():
     """The first inputs each kernel gets in one real theater frame (full
-    pipeline, 48x32, 3 bounces), recorded from the plain run."""
-    from flexlight_tpu import Config
-
+    pipeline, 48x32, 3 bounces, scheme="kernel"), recorded from the plain
+    run."""
     captured = {}
 
     def recorder(name, fn):
@@ -50,7 +67,8 @@ def frame_inputs():
     e = theater(stand_in_wood_texture(0), device="cpu")
     cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
                  samples_per_ray=1, max_reflections=3)
-    PathTracer(48, 32, e.scene, e.camera, cfg, "cpu", kernels=kernels).render_frame()
+    PathTracer(48, 32, e.scene, e.camera, cfg, "cpu", scheme="kernel",
+               kernels=kernels).render_frame()
     return captured
 
 
@@ -137,3 +155,83 @@ def test_launch_checks_reject_what_the_kernel_does_not_take(lib):
         FK._second_blur_launch(lib, 0, p5[:4])
     with pytest.raises(ValueError):
         XK._fxaa_launch(lib, 0, torch.zeros(8, 8, 4).transpose(0, 1))
+
+
+@pytest.fixture
+def exact_sqrt(monkeypatch):
+    """A correctly rounded float32 sqrt in the plain versions (see the
+    module docstring)."""
+    monkeypatch.setattr(v3, "sqrt", lambda x: torch.sqrt(x.double()).to(torch.float32))
+
+
+@pytest.fixture
+def host_sin(monkeypatch):
+    """The C library's sinf, which the emulated kernels call, as the plain
+    versions' hash sin."""
+    sinf = ctypes.CDLL(ctypes.util.find_library("m")).sinf
+    sinf.restype, sinf.argtypes = ctypes.c_float, [ctypes.c_float]
+    monkeypatch.setattr(rng, "_sin", lambda x: torch.tensor(
+        [sinf(float(a)) for a in x.reshape(-1).tolist()], dtype=torch.float32).reshape(x.shape))
+
+
+def _clone(args):
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _fused_frame(lib, rng, spp, emulated: bool):
+    """One theater frame at 16x16 (full pipeline, 5 bounces, `spp`
+    samples, scheme="fused_split") with the plain versions, or with PRE and
+    POST from the emulated build. Returns (image, the inputs of every PRE
+    and POST call, recorded before the call)."""
+    calls = []
+
+    def recorder(name, fn):
+        def rec(*a):
+            calls.append((name, _clone(a)))
+            return fn(*a)
+        return rec
+
+    if emulated:
+        pre = lambda *a: SK._sp_pre_launch(lib, 0, *a)  # noqa: E731
+        post = lambda *a: SK._sp_post_launch(lib, 0, *a)  # noqa: E731
+    else:
+        pre, post = PLAIN.sp_pre, PLAIN.sp_post
+    kernels = PLAIN._replace(sp_pre=recorder("sp_pre", pre), sp_post=recorder("sp_post", post))
+    e = theater(stand_in_wood_texture(0), device="cpu")
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=spp, max_reflections=5, rng=rng)
+    tracer = PathTracer(16, 16, e.scene, e.camera, cfg, "cpu", kernels=kernels)
+    assert tracer.resolved_scheme() == "fused_split"
+    return tracer.render_frame(), calls
+
+
+@pytest.mark.parametrize("rng_mode,spp", [("counter", 1), ("counter", 2), ("hash", 1)])
+def test_fused_kernels_are_bit_exact(lib, exact_sqrt, host_sin, rng_mode, spp):
+    """Every PRE and POST call of a theater frame (spp 2: the second PRE
+    resamples), emulated kernel against plain version on the same state:
+    identical, every row of the state. Then the frames are identical."""
+    img, calls = _fused_frame(lib, rng_mode, spp, emulated=False)
+    assert [n for n, _ in calls] == (["sp_pre"] + ["sp_post"] * 5) * spp
+    for name, args in calls:
+        launch = SK._sp_pre_launch if name == "sp_pre" else SK._sp_post_launch
+        plain = F.sp_pre_plain if name == "sp_pre" else F.sp_post_plain
+        got = launch(lib, 0, *_clone(args))
+        ref = plain(*_clone(args))
+        assert got.shape == (F.SP_C, 256)
+        bad = (got != ref).any(dim=1).nonzero().flatten().tolist()
+        assert not bad, (name, args[-2], bad)
+    img_k, _ = _fused_frame(lib, rng_mode, spp, emulated=True)
+    assert img.max() > 0
+    np.testing.assert_array_equal(img_k, img)
+
+
+def test_dead_rays_leave_the_state_unchanged_in_the_post_kernel(lib, exact_sqrt):
+    """A POST call on a state whose rays are all dead writes nothing."""
+    _, calls = _fused_frame(lib, "counter", 1, emulated=False)
+    args = _clone(calls[1][1])
+    state = args[0]
+    state[F.ALIVE] = 0.0
+    state[F.SURF] = 0.0
+    before = state.clone()
+    SK._sp_post_launch(lib, 0, *args)
+    assert torch.equal(state, before)

@@ -41,7 +41,6 @@ from flexlight_tpu import Config  # noqa: E402
 from flexlight_tpu import FlexLight as JaxFlexLight  # noqa: E402
 from flexlight_tpu.ops import buffers as jbuf  # noqa: E402
 from flexlight_tpu.ops.pathtrace import render_mrt as jrender  # noqa: E402
-from flexlight_tpu.scene.transform import reset_global_registry  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
 from flexlight_tpu_torch.ops import rng as trng  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
@@ -133,10 +132,14 @@ def _frame_config(mode, rng="hash"):
 
 
 def _frames(cfg, use_port, n=2):
-    reset_global_registry()
+    """Frames of cornell on either package's engine, the scene built with
+    that package's classes."""
+    import flexlight_tpu as jpkg
+    from tests.test_torch_scene_copy import build
+
     engine = port.FlexLight((SIZE, SIZE), device="cpu") if use_port else JaxFlexLight((SIZE, SIZE))
-    engine.scene, engine.camera = cornell_scene()
-    engine.config = cfg
+    engine.scene, engine.camera = build("cornell", port if use_port else jpkg)
+    engine.config = port.Config(**vars(cfg)) if use_port else cfg
     engine.renderer = "pathtracer"
     if use_port:
         return [engine.renderer.render_frame() for _ in range(n)]

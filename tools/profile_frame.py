@@ -1,12 +1,14 @@
 """Where the time of the port's headline frame goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--device cuda:0] [--seed 0] [--timed 8]
-                                   [--profiled 3] [--width 1920] [--height 1080]
-                                   [--out chiprun_out/profile_frame.json]
+    python3 tools/profile_frame.py [--scheme auto|fused_split|kernel] [--device cuda:0]
+                                   [--seed 0] [--timed 8] [--profiled 3]
+                                   [--width 1920] [--height 1080]
+                                   [--out chiprun_out/profile_frame_<scheme>.json]
 
 Renders theater (stand-in wood texture from --seed) with the headline
 config (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces) through
-flexlight_tpu_torch's PathTracer on --device, and reports:
+flexlight_tpu_torch's PathTracer on --device with --scheme ("auto", the
+default, resolves to "fused_split" for theater), and reports:
 
   * frame ms: host wall time of render_frame() (which returns the frame on
     the host), median of --timed frames after two warm-up frames;
@@ -14,6 +16,7 @@ flexlight_tpu_torch's PathTracer on --device, and reports:
     PathTracer._render_device() plus a synchronize; the sum of the device
     time of every kernel the card ran, split into the port's kernels (by
     their CUDA function names) and all other kernels (torch's own);
+  * kernels per frame: every kernel the card ran, the port's and torch's;
   * busy share in the profiled run: device ms / wall ms of those profiled
     frames. The profiler slows the host's launches, so this is a lower
     bound of the unprofiled frame's busy share;
@@ -40,9 +43,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # CUDA function name -> part of the frame
 PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
+         ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
          ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
-OTHER = "torch ops (shading, temporal, packing, vote repair)"
+OTHER = "torch ops (shading or texture glue, temporal, packing, vote repair)"
 
 
 def part_of(kernel_name: str) -> str:
@@ -66,14 +70,16 @@ def device_kernels(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scheme", default="auto", choices=("auto", "fused_split", "kernel"))
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed", type=int, default=8)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_frame.json"))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    out = args.out or os.path.join(ROOT, "chiprun_out", f"profile_frame_{args.scheme}.json")
 
     import torch
     from torch.autograd import DeviceType
@@ -97,7 +103,9 @@ def main() -> int:
                     antialiasing="fxaa", samples_per_ray=1, max_reflections=5)
     reset_global_registry()
     e = theater(stand_in_wood_texture(args.seed), device=dev)
-    tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev)
+    tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
+                        scheme=args.scheme)
+    scheme = tracer.resolved_scheme()
     for _ in range(2):
         tracer.render_frame()
 
@@ -124,8 +132,10 @@ def main() -> int:
         return 1
     parts = {part: 0.0 for _, part in PARTS}
     parts[OTHER] = 0.0
+    counts = dict.fromkeys(parts, 0.0)
     for name, us in kernels:
         parts[part_of(name)] += us / 1000.0 / args.profiled
+        counts[part_of(name)] += 1.0 / args.profiled
     busy = sum(parts.values())
     launches = len(kernels) / args.profiled
     top = sorted(((e.key, e.self_device_time_total / 1000.0 / args.profiled,
@@ -133,13 +143,13 @@ def main() -> int:
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda t: -t[1])[:8]
 
-    print(f"[frame] theater {args.width}x{args.height}: render_frame() ms "
+    print(f"[frame] theater {args.width}x{args.height}, scheme {scheme}: render_frame() ms "
           f"{[round(x, 1) for x in frame_ms]}, median {frame_med:.1f}", flush=True)
-    print("| Part | Device ms per frame |", flush=True)
-    print("| --- | --- |", flush=True)
+    print("| Part | Device ms per frame | Kernels per frame |", flush=True)
+    print("| --- | --- | --- |", flush=True)
     for part, ms in parts.items():
-        print(f"| {part} | {ms:.3f} |", flush=True)
-    print(f"| device busy | {busy:.3f} |", flush=True)
+        print(f"| {part} | {ms:.3f} | {counts[part]:.0f} |", flush=True)
+    print(f"| device busy | {busy:.3f} | {launches:.0f} |", flush=True)
     print(f"[profile] {launches:.0f} kernels per frame; profiled frame wall "
           f"{prof_wall_ms:.1f} ms, busy share there {busy / prof_wall_ms:.3f}; "
           f"unprofiled frame {frame_med:.1f} ms, derived idle share "
@@ -147,11 +157,12 @@ def main() -> int:
     print("[profile] largest torch ops by the device time of their kernels, ms and calls "
           "per frame: " + "; ".join(f"{n} {ms:.2f} ({c:.0f})" for n, ms, c in top), flush=True)
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump({"device": smi, "width": args.width, "height": args.height,
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"device": smi, "scheme": scheme, "width": args.width, "height": args.height,
                    "frame_ms": frame_ms, "frame_ms_median": frame_med,
-                   "device_ms_per_frame": parts, "device_busy_ms": busy,
+                   "device_ms_per_frame": parts, "kernels_per_frame_by_part": counts,
+                   "device_busy_ms": busy,
                    "kernels_per_frame": launches, "profiled_wall_ms": prof_wall_ms,
                    "busy_share_profiled": busy / prof_wall_ms,
                    "idle_share_derived": 1.0 - busy / frame_med,
