@@ -14,11 +14,15 @@ Phases, one line each (any failure exits non-zero):
      traversal kernels on the primary and shadow wavefronts of a
      scheme="kernel" frame and on a seeded random bounce wavefront; the
      filter passes and FXAA on the packed planes and the FXAA input of the
-     frame. Each kernel takes the same operations in the same order as its
-     plain version, so their outputs must be identical; prints the number
-     of differing values, the max abs difference, the median CUDA-event
-     time of both sides and the least time the card could take (bound).
-     The bounds of the TPU kernels not ported yet follow at the end.
+     frame; and the four worklist kernels of scheme="sparse" (tile flags,
+     nearest2 key, closest hit, any hit) on the wavefronts of a dragon
+     stand-in 1080p frame: its primary cast, its first shadow cast and its
+     first bounce cast. Each kernel takes the same operations in the same
+     order as its plain version, so their outputs must be identical; prints
+     the number of differing values, the max abs difference, the median
+     CUDA-event time of both sides (the slow plain worklist casts: one
+     timed call) and the least time the card could take (bound). The
+     bounds of the TPU kernels not ported yet follow at the end.
   4. main path: theater at 1080p (stand-in wood texture from --seed), full
      pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
      through FlexLight(...).renderer = "pathtracer" and render_frame(),
@@ -31,6 +35,15 @@ Phases, one line each (any failure exits non-zero):
      default), 2 frames, through the same entry points with the renderer's
      scheme set to "kernel"; checks that the traversal kernels were
      launched and the frames against their plain frames as above.
+  6. the sparse path: the dragon stand-in (scenes.dragon: seeded OBJ files
+     from --seed under build/objects/, 44,890 triangles, glass dragon and
+     sphere) at 1080p, full pipeline, through FlexLight(...).renderer =
+     "pathtracer" and render_frame(), the monkey head's look-at animation
+     applied before every frame; scheme "auto" must resolve to "sparse",
+     and every frame must launch the flags 10x, the key 9x, closest hit 5x
+     and any hit 5x. The frames against the same frames with the plain
+     versions as above (the plain worklist casts take seconds each at
+     1080p: ~20 s per plain frame).
 Then one JSON line per the kernels, the card's name and power limit, and a
 last line {"ok": true, "device": {...}}.
 """
@@ -73,16 +86,23 @@ OPS_LIGHT_ON = 5
 OPS_NOISE = {"hash": (5, 8), "counter": (0, 2)}  # one noise call: (per call, per output)
 OPS_DISC_TAP = {"first_blur": 4, "second_blur": 10, "final_blur": 10}  # what every tap runs
 OPS_FXAA_PIXEL = 39      # fxaa.cu: the 3x3 luma test every pixel runs
-# The TPU kernels not ported yet (PERF.md's table, rows 6-12): launch site,
+# sparse.cu: one slab test of a ray against a box (fl_slab) is per axis two
+# subtracts, two multiplies, a min and a max, and two to fold the axes in
+# (the first axis folds none): 22; a tile flag adds entry = max(tmin, BIAS),
+# the two hit compares and the running minimum; a key box the same with the
+# best-two compare. Per ray: 1 / d with its zero test (6); the key adds the
+# octant and the dead test (4). Dead rays need none of it.
+OPS_SLAB = 22
+OPS_FLAG = OPS_SLAB + 4
+OPS_KEY_BOX = OPS_SLAB + 4
+OPS_INV_DIR = 6
+OPS_KEY_RAY = OPS_INV_DIR + 4
+# The TPU kernels not ported yet (PERF.md's table, rows 10-12): launch site,
 # and the 4-byte words per ray that it passes in and out (None: the direct
 # frame's 14 channels and 7 per bounce). Their bound is these bytes at the
 # frame's rays over the memory rate; the scene-side tables, read once, are
 # left out.
 UNPORTED = (
-    (6, "ops/intersect_sparse.py:962", 7, 2),      # ray o, d, max_len; s, tri
-    (7, "ops/intersect_sparse.py:904", 7, 1),      # ray o, d, max_len; hit
-    (8, "ops/intersect_sparse.py:251", 8, 0),      # the ray stack; scene-sized tile flags
-    (9, "ops/intersect_sparse.py:578", 8, 1),      # the ray stack; sort key
     (10, "ops/fused.py:392", 8, None),             # camera ray block; record channels
     (11, "ops/fused.py:1467", 29 + 16, 29 + 26 + 7),  # carry, surface, tex, ndc; carry,
                                                    # request, record (per bounce)
@@ -196,8 +216,10 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
+        from flexlight_tpu_torch.ops.intersect_sparse_kernel import (EXIT_ABS, EXIT_REL,
+                                                                     TRI_TILE)
         from flexlight_tpu_torch.post.filter_kernel import byte_i
-        from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+        from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
     except ImportError as exc:
         fail(f"the flexlight_tpu_torch package is not importable beside this script: {exc}")
     t_start = time.perf_counter()
@@ -223,6 +245,19 @@ def drive(args, dev, smi: str) -> int:
         e.canvas = (width, height)
         e.config = config
         return e
+
+    objects = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "objects")
+
+    def dragon_engine(width, height):
+        """The dragon stand-in from --seed on a FlexLight of width x height;
+        (engine, animate)."""
+        reset_global_registry()
+        e, animate = dragon(args.seed, objects, device=dev)
+        e.canvas = (width, height)
+        e.config = config
+        return e, animate
+
+    sparse_names = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")
 
     # ---- 3. kernels vs plain --------------------------------------------
     t0 = time.perf_counter()
@@ -250,6 +285,34 @@ def drive(args, dev, smi: str) -> int:
     # versions, recording the kernels' inputs
     rec_set = KernelSet(*(every_call(n, f) if n.startswith("sp_") else first_call(n, f)
                           for n, f in zip(KernelSet._fields, PLAIN)))
+    # the worklist kernels' inputs: the first casts of one dragon stand-in
+    # frame through the kernels (flags: primary, shadow 0, bounce 1; key:
+    # shadow 0, bounce 1; closest hit: primary, bounce 1; any hit: shadow 0)
+    keep = {"sparse_flags": 3, "sparse_key": 2, "sparse_closest": 2, "sparse_any": 1}
+    sparse_calls = {name: [] for name in sparse_names}
+
+    def first_calls(name, fn):
+        def rec(*a):
+            if len(sparse_calls[name]) < keep[name]:
+                sparse_calls[name].append(a)
+            return fn(*a)
+        return rec
+
+    de, animate = dragon_engine(w, h)
+    tracer = PathTracer(w, h, de.scene, de.camera, config, dev, kernels=KERNELS._replace(
+        **{name: first_calls(name, getattr(KERNELS, name)) for name in sparse_names}))
+    if tracer.resolved_scheme() != "sparse":
+        fail(f"the dragon stand-in resolves to scheme {tracer.resolved_scheme()!r}, not sparse")
+    animate(0)
+    for k in KERNELS:
+        k.launches = 0
+    tracer.render_frame()
+    print("[kernel] the dragon frame launched " + ", ".join(
+        f"{name} {getattr(KERNELS, name).launches}x" for name in sparse_names), flush=True)
+    del tracer, de
+    if any(len(sparse_calls[name]) < keep[name] for name in sparse_names):
+        fail(f"the dragon frame made too few worklist casts: "
+             f"{ {name: len(c) for name, c in sparse_calls.items()} }")
     e = engine(w, h)
     tracer = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=rec_set)
     if tracer.resolved_scheme() != "fused_split":
@@ -267,7 +330,7 @@ def drive(args, dev, smi: str) -> int:
     PathTracer(w, h, e.scene, e.camera, config.replace(samples_per_ray=2), dev,
                kernels=PLAIN._replace(sp_pre=sp_pre_resample)).render_frame()
     del tracer
-    missing = [n for n in KernelSet._fields if n not in captured]
+    missing = [n for n in KernelSet._fields if n not in captured and n not in sparse_names]
     if missing or len(resample) != 1:
         fail(f"the frames did not reach {missing or 'a resampling PRE'}")
     if len(captured["sp_pre"]) != 1 or len(captured["sp_post"]) != config.max_reflections:
@@ -417,6 +480,93 @@ def drive(args, dev, smi: str) -> int:
     check("fxaa", "FXAA input of the frame", captured["fxaa"],
           bound(px * (16 + 16), px * OPS_FXAA_PIXEL))
     del captured
+
+    # the worklist kernels (scheme="sparse") on the dragon frame's wavefronts
+    def check_sparse(name, label, args_, bound_of, main=True):
+        """Kernel vs plain: identical outputs. The plain worklist casts take
+        seconds at 1080p: their time is that of the compared call."""
+        kernel_fn = lambda: getattr(KERNELS, name)(*args_)  # noqa: E731
+        ko = kernel_fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        po = getattr(PLAIN, name)(*args_)
+        end.record()
+        end.synchronize()
+        count, err = differences(ko, po, False)
+        report(name, label, count, err, cuda_ms(kernel_fn), start.elapsed_time(end),
+               bound_of(args_, ko), main)
+
+    def live_rays(ml):
+        return int((ml > 0).sum())
+
+    def flags_bound(a, out):
+        amin, ml = a[0], a[4]
+        n, k, live = ml.shape[0], amin.shape[0], live_rays(ml)
+        return bound(f32 * (7 * n + 6 * k + out.numel()), live * (OPS_INV_DIR + k * OPS_FLAG))
+
+    def key_bound(a, out):
+        bmin, ml = a[0], a[4]
+        n, nb, live = ml.shape[0], bmin.shape[0], live_rays(ml)
+        return bound(f32 * (7 * n + 6 * nb + n), live * (OPS_KEY_RAY + nb * OPS_KEY_BOX))
+
+    def tile_bytes(tlist, slots):
+        """Bytes of the worklist slots [RT] that each ray tile reads and of
+        the W tiles those slots name."""
+        used = torch.arange(tlist.shape[1], device=dev)[None] < slots[:, None]
+        tiles = int(torch.unique(tlist[used]).numel())
+        return f32 * (int(slots.sum()) + tiles * 4 * TRI_TILE * 16)
+
+    def sparse_closest_bound(a, out):
+        """The tests the walk cannot skip: for each live ray, the slots of
+        its ray tile's worklist whose entry bound lies within the guard band
+        of its own final best hit (the whole worklist where it hits
+        nothing)."""
+        tlist, tms, counts, ml, rt_size = a[1], a[2], a[3], a[6], a[8]
+        n, rt = ml.shape[0], counts.shape[0]
+        live = (ml > 0).reshape(rt, rt_size)
+        best = torch.where(out[3] >= 0, out[0], POW32).reshape(rt, rt_size)
+        reach = torch.searchsorted(tms, best * EXIT_REL + EXIT_ABS, right=True)
+        needed = torch.where(live, torch.minimum(reach.clamp_min(1), counts[:, None].long()), 0)
+        tests = int(needed.sum()) * TRI_TILE
+        slots = needed.amax(dim=1)
+        # tms is read at the slots the walk reads, tlist the same
+        nbytes = f32 * (11 * n + rt + int(slots.sum())) + tile_bytes(tlist, slots)
+        return bound(nbytes, live_rays(ml) * OPS_MAKE_RAY + tests * OPS_CLOSEST_TEST)
+
+    def sparse_any_bound(a, out):
+        """One test per occluded ray, the whole worklist per live ray that
+        nothing occludes; a ray tile whose live rays are all occluded reads
+        one slot."""
+        tlist, counts, ml, rt_size = a[1], a[2], a[5], a[6]
+        n, rt = ml.shape[0], counts.shape[0]
+        live = (ml > 0).reshape(rt, rt_size)
+        open_rays = (live & ~out.reshape(rt, rt_size)).sum(dim=1)
+        tests = int((out & (ml > 0)).sum()) + int((open_rays * counts).sum()) * TRI_TILE
+        slots = torch.where(open_rays > 0, counts, torch.minimum(counts, live.any(dim=1).int()))
+        nbytes = f32 * (7 * n + rt) + n + tile_bytes(tlist, slots)
+        return bound(nbytes, live_rays(ml) * OPS_MAKE_RAY + tests * OPS_ANY_TEST)
+
+    def rays_label(ml):
+        return f"{live_rays(ml)} of {ml.shape[0]} rays live"
+
+    for i, cast in enumerate(("primary", "shadow 0", "bounce 1")):
+        a = sparse_calls["sparse_flags"][i]
+        check_sparse("sparse_flags", f"{cast} cast, {rays_label(a[4])}, "
+                     f"{a[0].shape[0]} cluster boxes", a, flags_bound, main=i == 0)
+    for i, cast in enumerate(("shadow 0", "bounce 1")):
+        a = sparse_calls["sparse_key"][i]
+        check_sparse("sparse_key", f"{cast} cast, {rays_label(a[4])}, {a[0].shape[0]} "
+                     "supertile boxes", a, key_bound, main=i == 0)
+    for i, cast in enumerate(("primary", "bounce 1")):
+        a = sparse_calls["sparse_closest"][i]
+        check_sparse("sparse_closest", f"{cast} cast, {rays_label(a[6])}, worklists of "
+                     f"{float(a[3].float().mean()):.1f} tiles on average", a,
+                     sparse_closest_bound, main=i == 0)
+    a = sparse_calls["sparse_any"][0]
+    check_sparse("sparse_any", f"shadow 0 cast, {rays_label(a[5])}, worklists of "
+                 f"{float(a[2].float().mean()):.1f} tiles on average", a, sparse_any_bound)
+    del sparse_calls, a
     torch.cuda.empty_cache()
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -456,6 +606,8 @@ def drive(args, dev, smi: str) -> int:
         fail(f"kernels not launched on the main path: {idle}")
 
     def check_frames(label, frames, plain_frames, shape):
+        """The last frame's shape, finite values and light; each frame
+        within the golden budget of its plain frame."""
         last = frames[-1]
         if last.shape != shape:
             fail(f"{label}: frame shape {last.shape}")
@@ -493,11 +645,61 @@ def drive(args, dev, smi: str) -> int:
     kernel_launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
     print(f"[kernel-path] theater {w2}x{h2}, scheme {e.renderer.resolved_scheme()!r}, {n2} "
           f"frames: launches {kernel_launches}", flush=True)
-    idle = [name for name, c in kernel_launches.items() if c == 0 and not name.startswith("sp_")]
+    idle = [name for name, c in kernel_launches.items()
+            if c == 0 and not name.startswith("sp_") and name not in sparse_names]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
+    del frames, plain_frames, e
+    torch.cuda.empty_cache()
     print(f"[phase] scheme='kernel' path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 6. the sparse path: the dragon stand-in ----------------------------
+    t0 = time.perf_counter()
+    e, animate = dragon_engine(w, h)
+    e.renderer = "pathtracer"
+    scheme = e.renderer.resolved_scheme()
+    n_tris = e.renderer._buffers.id_buffer.shape[0]
+    print(f"[sparse-path] dragon stand-in (seed {args.seed}, {n_tris} triangles) {w}x{h}: "
+          f"scheme 'auto' resolves to {scheme!r}", flush=True)
+    if scheme != "sparse":
+        fail("the dragon stand-in must take scheme='sparse'")
+    for k in KERNELS:
+        k.launches = 0
+    frames, frame_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(args.frames):
+        animate(i)
+        t = time.perf_counter()
+        frames.append(e.renderer.render_frame())
+        frame_ms.append((time.perf_counter() - t) * 1000.0)
+    sparse_launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_frame = {name: c / args.frames for name, c in sparse_launches.items()}
+    print(f"[sparse-path] {args.frames} frames: ms per frame {[round(x, 1) for x in frame_ms]} "
+          f"(median of frames 2..: {statistics.median(frame_ms[1:] or frame_ms):.1f} ms); "
+          f"peak device memory {peak_gb:.2f} GiB; launches per frame {per_frame}", flush=True)
+    bounces = config.max_reflections
+    expect = {"sparse_flags": 2 * bounces, "sparse_key": 2 * bounces - 1,
+              "sparse_closest": bounces, "sparse_any": bounces}
+    wrong = {name: per_frame[name] for name, c in expect.items() if per_frame[name] != c}
+    if wrong:
+        fail(f"worklist kernel launches per frame {wrong}, expected {expect}")
+    idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
+            if sparse_launches[name] == 0]
+    if idle:
+        fail(f"kernels not launched on the sparse path: {idle}")
+    t1 = time.perf_counter()
+    de, step = dragon_engine(w, h)
+    plain = PathTracer(w, h, de.scene, de.camera, config, dev, kernels=PLAIN)
+    plain_frames = []
+    for i in range(args.frames):
+        step(i)
+        plain_frames.append(torch.from_numpy(plain.render_frame()))
+    plain_s = time.perf_counter() - t1
+    check_frames("sparse-path", frames, plain_frames, (h, w, 3))
+    print(f"[phase] sparse path: {time.perf_counter() - t0:.1f} s (the plain frames "
+          f"{plain_s:.1f} s)", flush=True)
 
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
@@ -506,6 +708,8 @@ def drive(args, dev, smi: str) -> int:
              "the port must run without them")
     for name in ("closest_hit", "any_hit"):
         launches[name] = kernel_launches[name]
+    for name in sparse_names:
+        launches[name] = sparse_launches[name]
     kernels = []
     for name, k in zip(KernelSet._fields, KERNELS):
         kernels.append({"name": name, "route": "cuda", "source": k.source,

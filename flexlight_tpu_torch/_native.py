@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "flexlight_kernels"
-SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu")
+SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu", "sparse.cu")
 HEADERS = ("common.cuh", "trace.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
@@ -62,6 +62,15 @@ SIGNATURES = {
     # state, tex, ndc, w4, tp, ids, mat, lights, n_lights, cam, random_seed,
     # cos_sample_n, bounce, do_next, counter, min_importance, n, stream
     "fl_sp_post": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _F, _I, _P],
+    # amin, amax, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, rt, out, stream
+    "fl_sparse_flags": [_P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
+    # bmin, bmax, nb, ox, oy, oz, dx, dy, dz, max_len, n, key, stream
+    "fl_sparse_key": [_P, _P, _I] + [_P] * 7 + [_I, _P, _P],
+    # w4, tp, tlist, tms, counts, wt, ox, oy, oz, dx, dy, dz, max_len, edge,
+    # ray_tile, n, s, u, v, tri, stream
+    "fl_sparse_closest": [_P, _I, _P, _P, _P, _I] + [_P] * 7 + [_F, _I, _I] + [_P] * 4 + [_P],
+    # w4, tp, tlist, counts, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, n, hit, stream
+    "fl_sparse_any": [_P, _I, _P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
 // Shared definitions of the flexlight_tpu_torch kernels.
 //
 // Every kernel here is launched 1-D over its items (rays or pixels) with
-// FL_LAUNCH, and reads blockDim.x wherever it cooperates inside a block.
+// FL_LAUNCH, or over its blocks (ray tiles) with FL_LAUNCH_BLOCKS (or
+// FL_LAUNCH_BLOCKS_SHARED, with dynamic shared memory), and reads
+// blockDim.x wherever it cooperates inside a block.
 // That lets the same sources compile for the host (-DFL_EMULATE, see
 // _native.build_library): each thread then runs in turn as a block of one,
 // __syncthreads() is a no-op, and the C entry points take host pointers.
@@ -38,6 +40,26 @@ static inline int __syncthreads_or(int p) { return p; }
         return 0;                                                        \
     } while (0)
 
+// One block per unit of work (a ray tile): n_blocks blocks of `block`
+// threads on the card, n_blocks blocks of one thread emulated.
+#define FL_LAUNCH_BLOCKS(kernel, n_blocks, block, stream, ...)           \
+    do {                                                                 \
+        (void)(block);                                                   \
+        FL_LAUNCH(kernel, n_blocks, 1, stream, __VA_ARGS__);             \
+    } while (0)
+
+// A block's dynamic shared memory of `floats` floats (FL_SHARED_FLOATS in
+// the kernel): one host buffer that every emulated block reuses.
+#include <vector>
+static thread_local float* fl_dyn_shared;
+#define FL_SHARED_FLOATS(name) float* name = fl_dyn_shared
+#define FL_LAUNCH_BLOCKS_SHARED(kernel, n_blocks, block, floats, stream, ...) \
+    do {                                                                 \
+        std::vector<float> shared_((size_t)(floats));                    \
+        fl_dyn_shared = shared_.data();                                  \
+        FL_LAUNCH_BLOCKS(kernel, n_blocks, block, stream, __VA_ARGS__);  \
+    } while (0)
+
 #else
 
 #include <cuda_runtime.h>
@@ -45,6 +67,20 @@ static inline int __syncthreads_or(int p) { return p; }
     do {                                                                 \
         unsigned grid_ = (unsigned)(((n_items) + (block) - 1) / (block)); \
         kernel<<<grid_, (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__); \
+        return (int)cudaGetLastError();                                  \
+    } while (0)
+
+#define FL_LAUNCH_BLOCKS(kernel, n_blocks, block, stream, ...)           \
+    do {                                                                 \
+        kernel<<<(unsigned)(n_blocks), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__); \
+        return (int)cudaGetLastError();                                  \
+    } while (0)
+
+#define FL_SHARED_FLOATS(name) extern __shared__ float name[]
+#define FL_LAUNCH_BLOCKS_SHARED(kernel, n_blocks, block, floats, stream, ...) \
+    do {                                                                 \
+        kernel<<<(unsigned)(n_blocks), (block), (size_t)(floats) * sizeof(float), \
+                 (cudaStream_t)(stream)>>>(__VA_ARGS__);                 \
         return (int)cudaGetLastError();                                  \
     } while (0)
 

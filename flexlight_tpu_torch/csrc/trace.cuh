@@ -8,7 +8,8 @@
 //   vec3 helpers        ops/vec3.py
 //   both noise hashes   ops/rng.py (noise4, noise4_counter)
 //   the BRDF            ops/brdf.py (forward_trace_soa)
-//   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16])
+//   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]),
+//                       which the sparse worklist kernels (sparse.cu) share
 // Constants are the float32 roundings of the Python doubles that torch
 // casts them from, written as (float)<double>.
 #pragma once
@@ -267,6 +268,45 @@ __device__ __forceinline__ float fl_dot16(const float* w, const float* f) {
     return acc;
 }
 
+// The two-sided closest-hit test of staged triangle t against ray r
+// (ops/intersect_kernel.py closest_hit_plain): s, u, v and whether the
+// accept window takes it; `edge` is the u/v window's lower edge (-BIAS on
+// primary casts, BIAS otherwise).
+__device__ __forceinline__ bool fl_mt_closest(float (*sw)[FL_TRI_CHUNK][16], int t,
+                                              const fl_ray& r, float edge, float& s,
+                                              float& u, float& v) {
+    float det = fl_dot16(sw[0][t], r.f);
+    float udet = fl_dot16(sw[1][t], r.f);
+    float vdet = fl_dot16(sw[2][t], r.f);
+    float sdet = fl_dot16(sw[3][t], r.f);
+    float inv = 1.0f / det;
+    u = udet * inv;
+    v = vdet * inv;
+    s = sdet * inv;
+    bool valid = fabsf(det) >= FL_BIAS;
+    valid = valid && (u >= edge) && (u <= 1.0f);
+    valid = valid && (v >= edge) && (u + v <= 1.0f);
+    return valid && (s > FL_BIAS) && (s <= r.max_len);
+}
+
+// The front-face-culled any-hit test of staged triangle t (glsl:143-158,
+// ops/intersect_kernel.py any_hit_plain).
+__device__ __forceinline__ bool fl_mt_any(float (*sw)[FL_TRI_CHUNK][16], int t,
+                                          const fl_ray& r) {
+    float det = fl_dot16(sw[0][t], r.f);
+    float udet = fl_dot16(sw[1][t], r.f);
+    float vdet = fl_dot16(sw[2][t], r.f);
+    float sdet = fl_dot16(sw[3][t], r.f);
+    float inv = 1.0f / det;
+    float u = udet * inv;
+    float v = vdet * inv;
+    float s = sdet * inv;
+    bool valid = det >= FL_BIAS;
+    valid = valid && (u >= FL_BIAS) && (u <= 1.0f);
+    valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
+    return valid && (s > FL_BIAS) && (s <= r.max_len);
+}
+
 struct fl_hit {
     float s, u, v;
     int col;  // triangle column, -1 on a miss
@@ -288,19 +328,8 @@ __device__ __forceinline__ fl_hit fl_block_closest(const float* __restrict__ w4,
             __syncthreads();
             if (want) {
                 for (int t = 0; t < cnt; ++t) {
-                    float det = fl_dot16(sw[0][t], r.f);
-                    float udet = fl_dot16(sw[1][t], r.f);
-                    float vdet = fl_dot16(sw[2][t], r.f);
-                    float sdet = fl_dot16(sw[3][t], r.f);
-                    float inv = 1.0f / det;
-                    float u = udet * inv;
-                    float v = vdet * inv;
-                    float s = sdet * inv;
-                    bool valid = fabsf(det) >= FL_BIAS;
-                    valid = valid && (u >= edge) && (u <= 1.0f);
-                    valid = valid && (v >= edge) && (u + v <= 1.0f);
-                    valid = valid && (s > FL_BIAS) && (s <= r.max_len);
-                    if (valid && s < best_s) {
+                    float s, u, v;
+                    if (fl_mt_closest(sw, t, r, edge, s, u, v) && s < best_s) {
                         best_s = s;
                         best_u = u;
                         best_v = v;
@@ -334,19 +363,7 @@ __device__ __forceinline__ bool fl_block_any(const float* __restrict__ w4, int t
         __syncthreads();
         if (want && !hit) {
             for (int t = 0; t < cnt; ++t) {
-                float det = fl_dot16(sw[0][t], r.f);
-                float udet = fl_dot16(sw[1][t], r.f);
-                float vdet = fl_dot16(sw[2][t], r.f);
-                float sdet = fl_dot16(sw[3][t], r.f);
-                float inv = 1.0f / det;
-                float u = udet * inv;
-                float v = vdet * inv;
-                float s = sdet * inv;
-                bool valid = det >= FL_BIAS;
-                valid = valid && (u >= FL_BIAS) && (u <= 1.0f);
-                valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
-                valid = valid && (s > FL_BIAS) && (s <= r.max_len);
-                if (valid) { hit = true; break; }
+                if (fl_mt_any(sw, t, r)) { hit = true; break; }
             }
         }
         __syncthreads();

@@ -8,9 +8,10 @@ including its dropped-attachment quirks (`_filter_chain_packed`).
 The hand-written kernels of the frame come in a `KernelSet`: `KERNELS`
 (the default) holds the kernel wrappers, `PLAIN` their plain PyTorch
 versions, which run the same frame without any kernel of this package.
-A frame launches the traversal kernels (scheme="kernel") or the fused
-PRE / POST kernels (scheme="fused_split"), and the filter and FXAA
-kernels either way.
+A frame launches the traversal kernels (scheme="kernel"), the fused
+PRE / POST kernels (scheme="fused_split") or the worklist kernels of large
+scenes (scheme="sparse": tile flags, nearest2 sort key, closest hit, any
+hit), and the filter and FXAA kernels either way.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from ..ops.buffers import build_scene_buffers
 from ..ops.fused import fused_split_eligible
 from ..ops.fused_kernel import sp_post, sp_pre
 from ..ops.intersect_kernel import any_hit, closest_hit
+from ..ops.intersect_sparse_kernel import (sparse_any, sparse_closest, sparse_flags,
+                                           sparse_key)
 from ..ops.pathtrace import render_mrt
 from ..post.common import quantize_rgba8, split_hdr
 from ..post.filter_kernel import (final_blur, final_filter_packed, first_blur,
@@ -46,10 +49,15 @@ class KernelSet(NamedTuple):
     fxaa: Callable
     sp_pre: Callable
     sp_post: Callable
+    sparse_flags: Callable
+    sparse_key: Callable
+    sparse_closest: Callable
+    sparse_any: Callable
 
 
 KERNELS = KernelSet(closest_hit, any_hit, first_blur, second_blur, final_blur,
-                    fxaa_cuda, sp_pre, sp_post)
+                    fxaa_cuda, sp_pre, sp_post, sparse_flags, sparse_key, sparse_closest,
+                    sparse_any)
 PLAIN = KernelSet(*(k.plain for k in KERNELS))
 
 
@@ -162,6 +170,9 @@ class PathTracer:
     explicit torch device."""
 
     type = "pathtracer"
+    # from this many triangles on, "auto" takes the sparse worklist casts
+    # (flexlight_tpu/models/pathtracer.py:342)
+    SPARSE_MIN_TRIS = 4096
 
     def __init__(self, width, height, scene, camera, config, device,
                  scheme: str = "auto", kernels: KernelSet = KERNELS):
@@ -207,15 +218,17 @@ class PathTracer:
 
     def resolved_scheme(self) -> str:
         """The scheme a frame runs. "auto" takes flexlight_tpu's rule on a
-        chip (models/pathtracer.py:355-370) on every device: "fused_split"
-        for scenes within its caps (<= 1024 triangles, <= 256 lights), else
-        "kernel" (flexlight_tpu's "sparse" above 4096 triangles is not
-        ported yet)."""
+        chip (models/pathtracer.py:344-371) on every device: below
+        SPARSE_MIN_TRIS triangles "fused_split" for scenes within its caps
+        (<= 1024 triangles, <= 256 lights), else "kernel"; "sparse" from
+        SPARSE_MIN_TRIS on."""
         if self.scheme == "auto":
             if self._buffers is None:
                 self.update_scene()
+            if self._buffers.id_buffer.shape[0] >= self.SPARSE_MIN_TRIS:
+                return "sparse"
             return "fused_split" if fused_split_eligible(self._buffers) else "kernel"
-        if self.scheme in ("kernel", "fused_split"):
+        if self.scheme in ("kernel", "fused_split", "sparse"):
             return self.scheme
         raise NotImplementedError(
             f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 2)")

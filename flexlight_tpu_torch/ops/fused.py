@@ -178,7 +178,7 @@ def sp_post_plain(state, tex, ndc, w4, ids, mat, lights, cam, random_seed: float
                              torch.where(req.m, pick.max_len, 0.0))
     carry = bounce_apply(carry, texv, req, shadowed)
     if i + 1 < config.max_reflections:
-        def traverse_soa(o3, d3, alive):
+        def traverse_soa(o3, d3, alive, bounce=False):
             max_len = torch.where(alive, torch.full_like(o3[0], POW32), 0.0)
             return closest_hit_plain(w4, ids, o3, d3, max_len, BIAS)
 

@@ -10,9 +10,10 @@ The bounce is kept as the reference's stage split, bounce_carry_init ->
 bounce_pre -> bounce_tex -> bounce_shade -> bounce_apply -> bounce_commit
 (composed by bounce_post). scheme="kernel" runs it as plain tensor code
 with the traversals in the closest-hit / any-hit kernels of
-ops.intersect_kernel; scheme="fused_split" (ops.fused) runs everything
-but bounce_tex in two fused kernels whose plain versions are built from
-the same stages.
+ops.intersect_kernel, scheme="sparse" the same around the worklist casts
+of ops.intersect_sparse (large scenes); scheme="fused_split" (ops.fused)
+runs everything but bounce_tex in two fused kernels whose plain versions
+are built from the same stages.
 
 The carry has no counterpart of flexlight_tpu's `original_id_acc`: no
 render target reads it.
@@ -35,6 +36,7 @@ from .rng import f32, noise4
 
 INV_255 = 1.0 / 255.0
 INV_PI = 0.3183098861837907
+BLOCK_TILE_MIN_TRIS = 2048   # flexlight_tpu/ops/pathtrace.py:58
 
 
 class MRT(NamedTuple):
@@ -448,14 +450,15 @@ def bounce_apply(carry: BounceCarry, tex, req: ShadeRequest, shadowed) -> Bounce
 
 
 def bounce_commit(carry: BounceCarry, m, i: int, config, traverse_soa) -> BounceCarry:
-    """Bounce stage 3c (glsl:591-597): the next closest hit."""
+    """Bounce stage 3c (glsl:591-597): the next closest hit, a bounce cast
+    (`bounce=True`: the sparse scheme sorts its wavefront)."""
     if i + 1 >= config.max_reflections:
         return carry
     zero = torch.zeros_like(carry.hs)
     one = torch.ones_like(carry.hs)
     ns, nu, nv, ntri = traverse_soa(
         v3.where3(m, carry.ray_origin, (zero, zero, zero)),
-        v3.where3(m, carry.ray_dir, (zero, zero, one)), alive=m)
+        v3.where3(m, carry.ray_dir, (zero, zero, one)), alive=m, bounce=True)
     hs = torch.where(m, ns, carry.hs)
     hu = torch.where(m, nu, carry.hu)
     hv = torch.where(m, nv, carry.hv)
@@ -475,7 +478,7 @@ def bounce_post(carry: BounceCarry, surface: BounceSurface, tex, i: int,
     carry, req = bounce_shade(carry, surface, tex, i, buffers, camera_pos,
                               ndc2, cos_sample_n, config, random_seed)
     shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir,
-                          req.pick.max_len, alive=req.m)
+                          req.pick.max_len, alive=req.m, bounce=True)
     carry = bounce_apply(carry, tex, req, shadowed)
     return bounce_commit(carry, req.m, i, config, traverse_soa)
 
@@ -503,6 +506,70 @@ def _contiguous3(x3):
     return tuple(c.contiguous() for c in x3)
 
 
+def _pick_block(rows: int, width: int):
+    """The squarest pixel block of 1024 rays that tiles the image exactly
+    (flexlight_tpu/ops/pathtrace.py:873-878), or None."""
+    for bh, bw in ((32, 32), (16, 64), (8, 128)):
+        if rows % bh == 0 and width % bw == 0:
+            return bh, bw
+    return None
+
+
+def block_tile(x, rows: int, width: int, bh: int, bw: int):
+    """Flat row-major pixels [N, ...] -> bh x bw block order: a ray tile of
+    consecutive rays then covers a compact pixel block, a tight frustum."""
+    lead = x.shape[1:]
+    x = x.reshape(rows // bh, bh, width // bw, bw, *lead)
+    return x.transpose(1, 2).reshape(rows * width, *lead)
+
+
+def block_untile(x, rows: int, width: int, bh: int, bw: int):
+    """The inverse of `block_tile`."""
+    lead = x.shape[1:]
+    x = x.reshape(rows // bh, width // bw, bh, bw, *lead)
+    return x.transpose(1, 2).reshape(rows * width, *lead)
+
+
+def _casts(scheme: str, buffers: SceneBuffers, world_geom, kernels):
+    """The scheme's cast closures (traverse_soa, shadow_soa). Both take
+    `bounce=True` on the casts of the bounce loop; the sparse scheme sorts
+    those wavefronts (its hinted casts) and reports drawable indices."""
+    if scheme == "sparse":
+        from . import intersect_sparse as isp
+
+        scene = isp.build_w4_tiled(world_geom, buffers.id_buffer)
+        sort = scene.n_tiles >= isp.SORT_MIN_TILES
+
+        def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):
+            return isp.traverse_sparse_soa(scene, o3, d3, alive=alive, edge=edge,
+                                           sort_rays=sort and bounce, kernels=kernels)
+
+        def shadow_soa(o3, d3, max_len, alive=None, bounce=False):
+            return isp.shadow_sparse_soa(scene, o3, d3, max_len, alive=alive,
+                                         sort_rays=sort and bounce, kernels=kernels)
+
+        return traverse_soa, shadow_soa
+    from . import intersect_kernel
+
+    kernels = intersect_kernel if kernels is None else kernels
+    w4, ids = intersect_kernel.build_w4(world_geom, buffers.id_buffer)
+
+    def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):
+        max_len = torch.full_like(o3[0], POW32)
+        if alive is not None:
+            max_len = torch.where(alive, max_len, 0.0)
+        return kernels.closest_hit(w4, ids, _contiguous3(o3), _contiguous3(d3),
+                                   max_len, edge)
+
+    def shadow_soa(o3, d3, max_len, alive=None, bounce=False):
+        if alive is not None:
+            max_len = torch.where(alive, max_len, 0.0)
+        return kernels.any_hit(w4, _contiguous3(o3), _contiguous3(d3),
+                               max_len.contiguous())
+
+    return traverse_soa, shadow_soa
+
+
 def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "kernel",
                kernels=None) -> MRT:
@@ -512,8 +579,14 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     scheme="kernel": the bounce loop as plain tensor code around the dense
     closest-hit / any-hit kernels (`kernels.closest_hit`,
     `kernels.any_hit`; default the CUDA kernel wrappers of
-    ops.intersect_kernel). scheme="fused_split": the per-bounce PRE / POST
-    kernels of ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
+    ops.intersect_kernel). scheme="sparse": the same loop around the
+    worklist casts of ops.intersect_sparse (`kernels.sparse_flags`,
+    `sparse_key`, `sparse_closest`, `sparse_any`; default
+    ops.intersect_sparse_kernel's wrappers), with the rays in block-tiled
+    order from BLOCK_TILE_MIN_TRIS triangles on and the per-triangle tables
+    in drawable order (flexlight_tpu/ops/pathtrace.py:957-1069,
+    1174-1197). scheme="fused_split": the per-bounce PRE / POST kernels of
+    ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
     ops.fused_kernel's wrappers). `kernels` may be any object with those
     attributes, such as models.pathtracer.PLAIN. The other schemes of
     flexlight_tpu are listed in ROADMAP.md."""
@@ -523,36 +596,34 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         return render_mrt_fused_split(buffers, width, height, camera_pos,
                                       view_matrix, config, random_seed,
                                       kernels=kernels)
-    if scheme != "kernel":
+    if scheme not in ("kernel", "sparse"):
         raise NotImplementedError(
-            f"scheme={scheme!r} is not ported yet (ROADMAP.md, Queue 2); "
-            "the port renders with scheme='kernel' or 'fused_split'")
-    from . import intersect_kernel
-
-    kernels = intersect_kernel if kernels is None else kernels
+            f"scheme={scheme!r} is not ported (ROADMAP.md, Queue 2); the port "
+            "renders with scheme='kernel', 'sparse' or 'fused_split'")
 
     dev = buffers.geometry.device
     camera_pos = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
     inv_view = inverse_view(view_matrix).to(dev)
     random_seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
     world_geom = world_geometry(buffers)
-    w4, ids = intersect_kernel.build_w4(world_geom, buffers.id_buffer)
-
-    def traverse_soa(o3, d3, alive=None, edge=BIAS):
-        max_len = torch.full_like(o3[0], POW32)
-        if alive is not None:
-            max_len = torch.where(alive, max_len, 0.0)
-        return kernels.closest_hit(w4, ids, _contiguous3(o3), _contiguous3(d3),
-                                   max_len, edge)
-
-    def shadow_soa(o3, d3, max_len, alive=None):
-        if alive is not None:
-            max_len = torch.where(alive, max_len, 0.0)
-        return kernels.any_hit(w4, _contiguous3(o3), _contiguous3(d3),
-                               max_len.contiguous())
+    traverse_soa, shadow_soa = _casts(scheme, buffers, world_geom, kernels)
 
     origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view)
     mat = build_material_table(buffers, world_geom)
+    loc_geometry = buffers.geometry
+    block = _pick_block(height, width)
+    blocked = (scheme == "sparse" and block is not None
+               and buffers.id_buffer.shape[0] >= BLOCK_TILE_MIN_TRIS)
+    if blocked:
+        # the origin is the camera for every ray: only directions and NDC move
+        direction3 = tuple(block_tile(c, height, width, *block) for c in direction3)
+        ndc2 = tuple(block_tile(c, height, width, *block) for c in ndc2)
+    if scheme == "sparse":
+        # the sparse casts report drawable indices: gather the per-triangle
+        # tables into drawable order once per frame
+        ids = buffers.id_buffer.long()
+        mat = mat[ids]
+        loc_geometry = loc_geometry[ids]
     # primaries replace the reference's watertight raster pass, so they take
     # the relaxed edge window; bounce rays keep the exact +BIAS window
     primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
@@ -570,17 +641,21 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
             cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux)
         total = v3.add3(total, color)
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
-    return assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
-                        original_color, aux)
+    mrt = assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
+                       original_color, aux, loc_geometry=loc_geometry)
+    if blocked:
+        mrt = MRT(*(block_untile(x, height, width, *block) for x in mrt))
+    return mrt
 
 
 def assemble_mrt(buffers: SceneBuffers, camera_pos, primary_uvt, final_color,
-                 original_color, aux) -> MRT:
+                 original_color, aux, loc_geometry=None) -> MRT:
     """The render targets of glsl:601-646 from the bounce loop's results:
     `primary_uvt` = (u, v, tri) of the primary hit (tri -1 on a miss),
     `final_color` averaged over the samples, `original_color` and `aux`
     (render_id 4-tuple, glass, originalRMEx, originalTPOx, firstRayLength)
-    of the last sample. Uncovered pixels are zero."""
+    of the last sample. Uncovered pixels are zero. `loc_geometry` is the
+    geometry table that `tri` indexes (default buffers.geometry)."""
     pu, pv, ptri = primary_uvt
     render_id, glass, original_rme_x, original_tpo_x, first_ray_length = aux
     covered = ptri != -1
@@ -589,7 +664,8 @@ def assemble_mrt(buffers: SceneBuffers, camera_pos, primary_uvt, final_color,
     rid3 = render_id[3] + INV_255  # glsl:637
 
     # primary-hit local position for the location id channel (glsl:641-642)
-    lrow = fetch_rows_t(buffers.geometry, torch.clamp_min(ptri, 0))
+    loc_geometry = buffers.geometry if loc_geometry is None else loc_geometry
+    lrow = fetch_rows_t(loc_geometry, torch.clamp_min(ptri, 0))
     puvw = (1.0 - pu - pv, pu, pv)
     rel_pos = (zero, zero, zero)
     for k in range(3):

@@ -1,5 +1,5 @@
 """The scene graph, transforms and flattening: the port's own copy of
-flexlight_tpu/scene (without static_mesh, see ROADMAP.md)."""
+flexlight_tpu/scene."""
 
 from .flatten import FlattenedScene, flatten_graph
 from .primitives import Bounding, Cuboid, Object3D, Plane, Primitive, Triangle

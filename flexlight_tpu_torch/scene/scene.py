@@ -303,15 +303,22 @@ class Scene:
         (scene.js:330-436). Quads become Planes, triangles become
         Triangles, with per-face material application.
 
-        `fast=True` asks for flexlight_tpu's native C++ loader and its
-        pre-baked StaticMesh, which the port does not have yet (ROADMAP.md,
-        Queue 1): it raises NotImplementedError. `fast=None` (the default)
-        and `fast=False` take this pure-Python parser.
+        `fast` (default: auto) routes through the native C++ loader, which
+        returns a pre-baked StaticMesh instead of a tree of Python
+        primitives (its own BVH stream, so another flattened scene than
+        this parser's); `fast=True` raises where the loader cannot be
+        built, `fast=False` takes the pure-Python parser.
         """
-        if fast:
-            raise NotImplementedError(
-                "import_obj(fast=True): the native OBJ loader and StaticMesh "
-                "are not ported yet (ROADMAP.md, Queue 1)")
+        if fast is None or fast:
+            from .. import native
+            from .static_mesh import StaticMesh
+
+            if native.available():
+                data = native.load_obj(path)
+                if data is not None:
+                    return StaticMesh(data, materials)
+            if fast:
+                raise RuntimeError("native loader unavailable")
         materials = materials or {}
         obj: list[Primitive] = []
         v: list[list[float]] = []

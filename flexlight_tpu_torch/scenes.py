@@ -8,14 +8,35 @@ repository does not carry. `stand_in_wood_texture` makes a stand-in of the
 same size from a seed. Given another engine (`engine=`, such as
 flexlight_tpu's FlexLight), `theater` builds the same scene with that
 engine's own classes, so a test can flatten both packages' scenes.
+
+`dragon` is examples/dragon.py's build_scene line for line (the port of
+the reference's examples/dragon.js: a glass dragon, a metallic monkey
+head that turns to face the camera, a glass sphere, on a metallic plane).
+Its three OBJ files (objects/dragon_lp.obj, monke_smooth.obj, sphere.obj)
+are not in this repository either: `dragon_stand_in_objs` writes seeded
+stand-ins with the same triangle counts as the scene the examples render
+(44,890 drawable triangles, 43,600 of them the dragon): closed,
+noise-displaced UV spheres with smooth vertex normals.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 
 from .engine import FlexLight
 from .scene.scene import Texture
+from .utils import mathlib
+
+# (file, longitude segments, latitude rings, axis scale, lift, noise amplitude):
+# a UV sphere of 2 * segments * (rings - 1) triangles
+STAND_IN_MESHES = (
+    ("dragon_lp.obj", 200, 110, (9.0, 5.0, 4.0), 5.0, 0.18),   # 43,600 triangles
+    ("monke_smooth.obj", 22, 23, (1.0, 0.85, 0.9), 0.0, 0.08),  # 968
+    ("sphere.obj", 16, 11, (1.0, 1.0, 1.0), 0.0, 0.0),          # 320
+)
 
 
 def stand_in_wood_texture(seed: int) -> Texture:
@@ -96,3 +117,146 @@ def theater(texture: Texture, device=None, engine=None):
 
     scene.queue.push([bottom_plane, back_plane, left_plane, right_plane, cube])
     return engine
+
+
+def stand_in_mesh(rng: np.random.Generator, segments: int, rings: int, scale, lift: float,
+                  amplitude: float):
+    """A closed UV sphere displaced by seeded smooth noise: (vertices [V, 3],
+    smooth vertex normals [V, 3], triangles [F, 3] of 1-based indices),
+    F = 2 * segments * (rings - 1). The poles are single vertices."""
+    theta = np.pi * np.arange(1, rings) / rings                 # latitude circles
+    phi = 2.0 * np.pi * np.arange(segments) / segments
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    ring = np.stack([st * np.cos(phi), np.broadcast_to(ct, (rings - 1, segments)),
+                     st * np.sin(phi)], axis=-1).reshape(-1, 3)
+    unit = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]])
+    # smooth noise: a sum of random plane waves over the unit direction
+    freq = rng.normal(0.0, 2.5, (12, 3))
+    phase = rng.uniform(0.0, 2.0 * np.pi, 12)
+    weight = rng.uniform(0.5, 1.0, 12) / 12.0 ** 0.5
+    radius = 1.0 + amplitude * (np.sin(unit @ freq.T + phase) * weight).sum(axis=1)
+    verts = unit * radius[:, None] * np.asarray(scale) + np.array([0.0, lift, 0.0])
+
+    south = len(unit) - 1
+    tris = []
+    for j in range(segments):
+        k = (j + 1) % segments
+        tris.append((0, 1 + k, 1 + j))                          # north fan
+        for r in range(rings - 2):
+            a, b = 1 + r * segments + j, 1 + r * segments + k
+            c, d = a + segments, b + segments
+            tris += [(a, b, d), (a, d, c)]
+        base = 1 + (rings - 2) * segments
+        tris.append((south, base + j, base + k))                # south fan
+    tris = np.asarray(tris, dtype=np.int64)
+
+    e1 = verts[tris[:, 1]] - verts[tris[:, 0]]
+    e2 = verts[tris[:, 2]] - verts[tris[:, 0]]
+    face_n = np.cross(e1, e2)                                   # area-weighted
+    normals = np.zeros_like(verts)
+    for c in range(3):
+        np.add.at(normals, tris[:, c], face_n)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    return verts, normals, tris + 1
+
+
+def dragon_stand_in_objs(seed: int, directory) -> dict:
+    """Write the three seeded stand-in OBJ files of the dragon scene into
+    `directory` (created if missing); returns {file name: path}. The same
+    seed writes the same bytes."""
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for name, segments, rings, scale, lift, amplitude in STAND_IN_MESHES:
+        path = os.path.join(directory, name)
+        write_obj(path, *stand_in_mesh(rng, segments, rings, scale, lift, amplitude),
+                  comment=f"seeded stand-in for objects/{name} (seed {seed})")
+        paths[name] = path
+    return paths
+
+
+def write_obj(path, verts, normals, tris, comment: str = "") -> None:
+    """An OBJ file of vertices, vertex normals and triangles (1-based
+    indices, each vertex with its own normal)."""
+    lines = [f"# {comment}"] if comment else []
+    lines += [f"v {x:.7g} {y:.7g} {z:.7g}" for x, y, z in verts]
+    lines += [f"vn {x:.7g} {y:.7g} {z:.7g}" for x, y, z in normals]
+    lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in tris]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def dragon(seed: int, directory, device=None, engine=None, fast: bool | None = None):
+    """examples/dragon.py:build_scene with the stand-in OBJ files of
+    `dragon_stand_in_objs(seed, directory)`, on a new
+    flexlight_tpu_torch.FlexLight on `device`, or on `engine` (a FlexLight
+    of either package with a canvas of 192 x 192). `fast` is passed to
+    every `import_obj` (default: the native loader where it builds).
+    Returns (engine, animate): `animate(t)` turns the monkey head to face
+    the camera (dragon.js:97-119)."""
+    objs = dragon_stand_in_objs(seed, directory)
+    if engine is None:
+        engine = FlexLight((192, 192), device=device)
+    engine.io = "web"
+    camera = engine.camera
+    scene = engine.scene
+
+    camera.x, camera.y, camera.z = -10, 14, -10
+    camera.fx, camera.fy = -0.9, 0.45
+
+    scene.primaryLightSources = [[50, 70, 50]]
+    scene.primary_light_sources[0].intensity = 50000
+    scene.primary_light_sources[0].variation = 10
+    scene.ambientLight = [0.1, 0.1, 0.1]
+
+    plane = scene.Plane([-500, -1, -500], [500, -1, -500], [500, -1, 500], [-500, -1, 500])
+    plane.roughness = 1
+    plane.metallicity = 0.8
+    scene.queue.push(plane)
+
+    dragon_transform = scene.Transform()
+    dragon_transform.move(15, 0, 15)
+    dragon_transform.scale(0.5)
+    obj = scene.import_obj(objs["dragon_lp.obj"], fast=fast)
+    obj.transform = dragon_transform
+    obj.roughness = 0
+    obj.metallicity = 1
+    obj.translucency = 1
+    obj.ior = 1.5
+    obj.color = [255, 100, 100]
+    scene.queue.push(obj)
+
+    monke_transform = scene.Transform()
+    monke_transform.move(5, 1, 12)
+    monke_transform.scale(2)
+    monke = scene.import_obj(objs["monke_smooth.obj"], fast=fast)
+    monke.transform = monke_transform
+    monke.roughness = 0.1
+    monke.metallicity = 1
+    monke.color = [255, 200, 100]
+    scene.queue.push(monke)
+
+    sphere = scene.import_obj(objs["sphere.obj"], fast=fast)
+    sphere.scale(4)
+    sphere.move(15, 3, 0)
+    sphere.metallicity = 1
+    sphere.roughness = 0
+    sphere.translucency = 1
+    sphere.ior = 1.5
+    scene.queue.push(sphere)
+
+    scene.queue[:] = [scene.generate_bvh()]
+    engine.renderer = "pathtracer"
+    engine.renderer.update_scene()
+
+    def animate(_t):
+        # Look-at-camera spherical rotation (dragon.js:97-119)
+        diff = mathlib.diff([camera.x, camera.y, camera.z], monke_transform.position)
+        r = mathlib.length(diff)
+        theta = (math.copysign(1, diff[2])
+                 * math.acos(diff[0] / math.sqrt(diff[0] ** 2 + diff[2] ** 2))
+                 - math.pi * 0.5)
+        psi = math.acos(diff[1] / r) - math.pi * 0.5
+        monke_transform.rotate_spherical(theta, psi)
+
+    return engine, animate

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each kernel wrapper on CUDA tensors
 against its plain version on the same tensors, and a small theater frame
-through all of them. Marked `gpu`; without a CUDA device these tests skip.
+(and a small dragon stand-in frame, scheme="sparse") through all of them.
+Marked `gpu`; without a CUDA device these tests skip.
 Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
@@ -95,4 +96,68 @@ def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
     assert ran == traversal | {"first_blur", "second_blur", "final_blur", "fxaa"}
     assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_imgs[scheme])
+    assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+
+
+SPARSE = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")
+
+
+@pytest.fixture(scope="module")
+def sparse_frame(dev, tmp_path_factory):
+    """One 128x64 frame of the dragon stand-in ("auto" resolves to
+    "sparse") with the plain versions, recording each worklist kernel's
+    inputs of its first call; and the frame."""
+    from flexlight_tpu_torch import reset_global_registry
+    from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.scenes import dragon
+
+    captured = {}
+
+    def recorder(name, fn):
+        def rec(*a):
+            captured.setdefault(name, a)
+            return fn(*a)
+        return rec
+
+    kernels = KernelSet(*(recorder(n, f) for n, f in zip(KernelSet._fields, PLAIN)))
+    reset_global_registry()
+    e, animate = dragon(0, tmp_path_factory.mktemp("objects"), device=dev)
+    animate(0.0)
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=1, max_reflections=3)
+    tracer = PathTracer(128, 64, e.scene, e.camera, cfg, dev, kernels=kernels)
+    assert tracer.resolved_scheme() == "sparse"
+    return captured, tracer.render_frame(), e, cfg
+
+
+@pytest.mark.parametrize("name", SPARSE)
+def test_sparse_kernel_matches_plain_on_the_card(sparse_frame, name):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+
+    args = sparse_frame[0][name]
+    kernel = getattr(KERNELS, name)
+    before = kernel.launches
+    got = kernel(*args)
+    ref = getattr(PLAIN, name)(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for a, b in zip(got, ref):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, dev):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
+
+    _, plain_img, e, cfg = sparse_frame
+    counts = [k.launches for k in KERNELS]
+    img = PathTracer(128, 64, e.scene, e.camera, cfg, dev).render_frame()
+    ran = {n: k.launches - c for n, k, c in zip(KernelSet._fields, KERNELS, counts)
+           if k.launches > c}
+    assert ran == {"sparse_flags": 6, "sparse_key": 5, "sparse_closest": 3, "sparse_any": 3,
+                   "first_blur": 3, "second_blur": 3, "final_blur": 1, "fxaa": 1}
+    assert img.shape == (64, 128, 3) and np.isfinite(img).all() and img.max() > 0
+    d = np.abs(img - plain_img)
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5

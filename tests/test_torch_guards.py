@@ -126,7 +126,7 @@ def test_unported_surface_raises():
     e.config = e.config.replace(antialiasing="taa")
     with pytest.raises(NotImplementedError, match="taa"):
         e.renderer.render_frame()
-    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="sparse")
+    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="mxu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.render_frame()
 

@@ -22,6 +22,8 @@ from flexlight_tpu.scene import transform as jtransform  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
 from flexlight_tpu_torch.scene import transform as ttransform  # noqa: E402
+from flexlight_tpu_torch.native import available as native_available  # noqa: E402
+from flexlight_tpu_torch.scene.static_mesh import StaticMesh  # noqa: E402
 from flexlight_tpu_torch.scenes import stand_in_wood_data, theater  # noqa: E402
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
@@ -159,18 +161,56 @@ f 1/1/1 2/2/1 5/3/1
 """
 
 
-def test_import_obj_pure_python_path_and_fast_path_refusal(tmp_path):
+def test_import_obj_pure_python_path_and_fast_path_refusal(tmp_path, monkeypatch):
+    """fast=False takes the pure-Python parser in both packages; where the
+    native loader cannot be built, fast=None falls back to the parser and
+    fast=True raises."""
+    from flexlight_tpu_torch import native
+
     path = tmp_path / "quad_tri.obj"
     path.write_text(_OBJ)
     ttransform.reset_global_registry()
     jtransform.reset_global_registry()
     tscene, jscene = port.Scene(), jpkg.Scene()
-    tscene.queue.push(tscene.import_obj(str(path)))
+    tscene.queue.push(tscene.import_obj(str(path), fast=False))
     jscene.queue.push(jscene.import_obj(str(path), fast=False))
     assert_same_buffers(jbuf.build_scene_buffers(jscene),
                         tbuf.build_scene_buffers(tscene, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert not isinstance(tscene.import_obj(str(path)), StaticMesh)
+    with pytest.raises(RuntimeError, match="native loader"):
         tscene.import_obj(str(path), fast=True)
+
+
+@pytest.mark.skipif(not native_available(), reason="no host C++ compiler for the OBJ loader")
+@pytest.mark.parametrize("fast", [None, True])
+def test_native_obj_loader_matches_the_jax_package(tmp_path, fast):
+    """The native loader and StaticMesh (the default route of import_obj in
+    both packages): the seeded stand-in OBJ alone, and the whole dragon
+    stand-in scene, flatten to identical buffers in both packages; the
+    port's loader builds under build/, not in the package."""
+    from flexlight_tpu_torch import native
+    from flexlight_tpu_torch.scenes import dragon, dragon_stand_in_objs
+
+    objs = dragon_stand_in_objs(0, tmp_path / "objects")
+    ttransform.reset_global_registry()
+    jtransform.reset_global_registry()
+    tscene, jscene = port.Scene(), jpkg.Scene()
+    tmesh = tscene.import_obj(objs["monke_smooth.obj"], fast=fast)
+    assert isinstance(tmesh, StaticMesh)
+    tscene.queue.push(tmesh)
+    jscene.queue.push(jscene.import_obj(objs["monke_smooth.obj"], fast=fast))
+    assert_same_buffers(jbuf.build_scene_buffers(jscene),
+                        tbuf.build_scene_buffers(tscene, "cpu"))
+    assert native.BUILD_ROOT.parts[-2:] == ("build", "flexlight_native")
+    assert not list(native.SRC.parent.glob("*.so"))
+
+    ttransform.reset_global_registry()
+    jtransform.reset_global_registry()
+    teng, _ = dragon(0, tmp_path / "port", device="cpu", fast=fast)
+    jeng, _ = dragon(0, tmp_path / "jax", engine=jpkg.FlexLight((192, 192)), fast=fast)
+    assert_same_buffers(jeng.renderer._buffers, teng.renderer._buffers)
+    assert teng.renderer._buffers.id_buffer.shape[0] == 44890
 
 
 def test_engine_facade_is_the_ports_own():

@@ -1,14 +1,18 @@
-"""Where the time of the port's headline frame goes, on one CUDA card.
+"""Where the time of one of the port's frames goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--scheme auto|fused_split|kernel] [--device cuda:0]
-                                   [--seed 0] [--timed 8] [--profiled 3]
+    python3 tools/profile_frame.py [--scene theater|dragon]
+                                   [--scheme auto|fused_split|kernel|sparse]
+                                   [--device cuda:0] [--seed 0] [--timed 8] [--profiled 3]
                                    [--width 1920] [--height 1080]
-                                   [--out chiprun_out/profile_frame_<scheme>.json]
+                                   [--out build/profile_frame_<scene>_<scheme>.json]
 
-Renders theater (stand-in wood texture from --seed) with the headline
-config (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces) through
-flexlight_tpu_torch's PathTracer on --device with --scheme ("auto", the
-default, resolves to "fused_split" for theater), and reports:
+Renders --scene with the headline config (temporal 4, 3+3+final filter,
+FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
+--device with --scheme: theater (stand-in wood texture from --seed;
+"auto" resolves to "fused_split") or the dragon stand-in (its seeded OBJ
+files written under build/objects/; 44,890 triangles, "auto" resolves to
+"sparse"; the monkey head's look-at animation runs before every frame).
+It reports:
 
   * frame ms: host wall time of render_frame() (which returns the frame on
     the host), median of --timed frames after two warm-up frames;
@@ -43,10 +47,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # CUDA function name -> part of the frame
 PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
+         ("fl_sparse_flags", "sparse tile flags"), ("fl_sparse_key", "sparse nearest2 key"),
+         ("fl_sparse_closest", "sparse closest hit"), ("fl_sparse_any", "sparse any hit"),
          ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
          ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
-OTHER = "torch ops (shading or texture glue, temporal, packing, vote repair)"
+OTHER = ("torch ops (shading or texture glue, worklist sort and compaction, temporal, "
+         "packing, vote repair)")
 
 
 def part_of(kernel_name: str) -> str:
@@ -70,7 +77,9 @@ def device_kernels(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scheme", default="auto", choices=("auto", "fused_split", "kernel"))
+    ap.add_argument("--scene", default="theater", choices=("theater", "dragon"))
+    ap.add_argument("--scheme", default="auto",
+                    choices=("auto", "fused_split", "kernel", "sparse"))
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed", type=int, default=8)
@@ -79,7 +88,8 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    out = args.out or os.path.join(ROOT, "chiprun_out", f"profile_frame_{args.scheme}.json")
+    out = args.out or os.path.join(ROOT, "build",
+                                   f"profile_frame_{args.scene}_{args.scheme}.json")
 
     import torch
     from torch.autograd import DeviceType
@@ -92,7 +102,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from flexlight_tpu_torch import Config, reset_global_registry
     from flexlight_tpu_torch.models.pathtracer import PathTracer
-    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+    from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -102,17 +112,29 @@ def main() -> int:
     config = Config(temporal=True, temporal_samples=4, filter=True,
                     antialiasing="fxaa", samples_per_ray=1, max_reflections=5)
     reset_global_registry()
-    e = theater(stand_in_wood_texture(args.seed), device=dev)
+    if args.scene == "dragon":
+        e, animate = dragon(args.seed, os.path.join(ROOT, "build", "objects"), device=dev)
+    else:
+        e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
     tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
                         scheme=args.scheme)
     scheme = tracer.resolved_scheme()
+    frames = 0
+
+    def step(fn):
+        nonlocal frames
+        if animate is not None:
+            animate(frames)
+        frames += 1
+        return fn()
+
     for _ in range(2):
-        tracer.render_frame()
+        step(tracer.render_frame)
 
     frame_ms = []
     for _ in range(args.timed):
         t = time.perf_counter()
-        tracer.render_frame()
+        step(tracer.render_frame)
         frame_ms.append((time.perf_counter() - t) * 1000.0)
     frame_med = statistics.median(frame_ms)
 
@@ -122,7 +144,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(args.profiled):
-            tracer._render_device()
+            step(tracer._render_device)
         torch.cuda.synchronize(dev)
         prof_wall_ms = (time.perf_counter() - t) * 1000.0 / args.profiled
 
@@ -143,7 +165,7 @@ def main() -> int:
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda t: -t[1])[:8]
 
-    print(f"[frame] theater {args.width}x{args.height}, scheme {scheme}: render_frame() ms "
+    print(f"[frame] {args.scene} {args.width}x{args.height}, scheme {scheme}: render_frame() ms "
           f"{[round(x, 1) for x in frame_ms]}, median {frame_med:.1f}", flush=True)
     print("| Part | Device ms per frame | Kernels per frame |", flush=True)
     print("| --- | --- | --- |", flush=True)
@@ -159,7 +181,8 @@ def main() -> int:
 
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
-        json.dump({"device": smi, "scheme": scheme, "width": args.width, "height": args.height,
+        json.dump({"device": smi, "scene": args.scene, "scheme": scheme,
+                   "width": args.width, "height": args.height,
                    "frame_ms": frame_ms, "frame_ms_median": frame_med,
                    "device_ms_per_frame": parts, "kernels_per_frame_by_part": counts,
                    "device_busy_ms": busy,
