@@ -13,16 +13,19 @@ Phases, one line each (any failure exits non-zero):
      of a frame (5 bounces) and of one resampling PRE (2 spp); the
      traversal kernels on the primary and shadow wavefronts of a
      scheme="kernel" frame and on a seeded random bounce wavefront; the
-     filter passes and FXAA on the packed planes and the FXAA input of the
-     frame; and the four worklist kernels of scheme="sparse" (tile flags,
-     nearest2 key, closest hit, any hit) on the wavefronts of a dragon
-     stand-in 1080p frame: its primary cast, its first shadow cast and its
-     first bounce cast. Each kernel takes the same operations in the same
-     order as its plain version, so their outputs must be identical; prints
-     the number of differing values, the max abs difference, the median
-     CUDA-event time of both sides (the slow plain worklist casts: one
-     timed call) and the least time the card could take (bound). The
-     bounds of the TPU kernels not ported yet follow at the end.
+     shade kernel on the state of each of the 5 bounces of that
+     scheme="kernel" frame with shade_kernel=True; the filter passes and
+     FXAA on the packed planes and the FXAA input of the frame; and the
+     four worklist kernels of scheme="sparse" (tile flags, nearest2 key,
+     closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
+     frame with shade_kernel=True: its primary cast, its first shadow cast
+     and its first bounce cast, and the interp_shade kernel on the state of
+     each of its 5 bounces. Each kernel takes the same operations in the
+     same order as its plain version, so their outputs must be identical;
+     prints the number of differing values, the max abs difference, the
+     median CUDA-event time of both sides (the slow plain worklist casts:
+     one timed call) and the least time the card could take (bound). The
+     bound of the TPU kernel not ported yet follows at the end.
   4. main path: theater at 1080p (stand-in wood texture from --seed), full
      pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
      through FlexLight(...).renderer = "pathtracer" and render_frame(),
@@ -44,6 +47,14 @@ Phases, one line each (any failure exits non-zero):
      and any hit 5x. The frames against the same frames with the plain
      versions as above (the plain worklist casts take seconds each at
      1080p: ~20 s per plain frame).
+  7. the shade-kernel paths, through the same entry points with the
+     renderer's shade_kernel switch on: (a) the dragon stand-in at 1080p as
+     in phase 6, which must launch interp_shade 5x per frame (shade never)
+     besides the worklist kernels' 10 / 9 / 5 / 5, its frames against phase
+     6's plain frames (the plain shading versions are the eager stage
+     functions, so those frames serve); (b) theater at 1080p on
+     scheme="kernel", 2 frames, which must launch shade 5x per frame
+     (interp_shade never), against their plain frames.
 Then one JSON line per the kernels, the card's name and power limit, and a
 last line {"ok": true, "device": {...}}.
 """
@@ -76,14 +87,34 @@ FP32_OPS_PER_S = 67e12
 OPS_CLOSEST_TEST = 58
 OPS_ANY_TEST = 57
 OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
-OPS_BOUNCE_PRE = 205     # fused.cu fl_bounce_pre: 55, and 50 per vertex
-OPS_SHADE = 177          # fused.cu POST up to the shadow ray, outside the light loop and noise
+OPS_BOUNCE_PRE = 205     # trace.cuh fl_bounce_pre: 55, and 50 per vertex
+# trace.cuh fl_bounce_shade outside the light loop and the noise: the frame
+# (ray_dir 14, sign 7, flip 3, noise phase 1, random sphere 25, brdf 9,
+# rough normal 20, half vector 14, v.h 6, (1-v.h)^5 4, Fresnel 15, decision
+# 2), the id packing (2 atan2 phases 8, 2 nibble packs 10, 3 sums), the
+# filter tests 2, the reservoir normals 6 and its epilogue (light dir 11,
+# tests 8, offset target 6, length 6); the scale of the ids adds one
+# multiply per bounce index
+OPS_SHADE = 180
 OPS_FIRST_LENGTH = 21    # and, at bounce 1, the first ray length
 OPS_APPLY = 64           # fused.cu bounce_apply with next_ray_dir
 OPS_LIGHT = 148          # one light of the reservoir loop: position, fl_forward_trace (130),
                          # weight, selection; a light that is on adds its 5 sums
 OPS_LIGHT_ON = 5
+OPS_TEX_SELECT = 3       # shade.cu: interp_shade's three texture-number tests
 OPS_NOISE = {"hash": (5, 8), "counter": (0, 2)}  # one noise call: (per call, per output)
+# The words a live ray reads and writes in the shading kernels (shade.cu):
+# shade reads 19 carry words, the surface's normal and offset (4), the
+# textures (9) and the NDC (2), and writes the 13 carry words bounce_shade
+# changes and the 26-word request; interp_shade reads the 26 carry words
+# bounce_pre and bounce_shade take and the NDC, and writes ray_origin, the
+# 13 carry words and the 30-word request (with emis and tpo), besides the
+# 49-float material row of each triangle its rays hit. At bounce 1 both
+# read and write the first ray length too. Every ray reads m (shade) or
+# alive and writes m (interp_shade).
+SHADE_WORDS = (34, 39)
+STEP_WORDS = (28, 46)
+MAT_C = 49
 OPS_DISC_TAP = {"first_blur": 4, "second_blur": 10, "final_blur": 10}  # what every tap runs
 OPS_FXAA_PIXEL = 39      # fxaa.cu: the 3x3 luma test every pixel runs
 # sparse.cu: one slab test of a ray against a box (fl_slab) is per axis two
@@ -97,18 +128,11 @@ OPS_FLAG = OPS_SLAB + 4
 OPS_KEY_BOX = OPS_SLAB + 4
 OPS_INV_DIR = 6
 OPS_KEY_RAY = OPS_INV_DIR + 4
-# The TPU kernels not ported yet (PERF.md's table, rows 10-12): launch site,
-# and the 4-byte words per ray that it passes in and out (None: the direct
-# frame's 14 channels and 7 per bounce). Their bound is these bytes at the
-# frame's rays over the memory rate; the scene-side tables, read once, are
-# left out.
-UNPORTED = (
-    (10, "ops/fused.py:392", 8, None),             # camera ray block; record channels
-    (11, "ops/fused.py:1467", 29 + 16, 29 + 26 + 7),  # carry, surface, tex, ndc; carry,
-                                                   # request, record (per bounce)
-    (12, "ops/fused.py:1650", 29 + 2 + 49, 29 + 1 + 26 + 7 + 4),  # carry, ndc, material
-                                                   # row; carry, m, request, record, tex
-)
+# The TPU kernel not ported yet (PERF.md's table, row 10): launch site, and
+# the 4-byte words per ray that it passes in and out (the direct frame's 14
+# channels and 7 per bounce). Its bound is these bytes at the frame's rays
+# over the memory rate; the scene-side tables, read once, are left out.
+UNPORTED = ((10, "ops/fused.py:392", 8, None),)   # camera ray block; record channels
 
 
 def fail(msg: str) -> None:
@@ -258,6 +282,7 @@ def drive(args, dev, smi: str) -> int:
         return e, animate
 
     sparse_names = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")
+    in_place = ("sp_pre", "sp_post", "shade", "interp_shade")
 
     # ---- 3. kernels vs plain --------------------------------------------
     t0 = time.perf_counter()
@@ -274,16 +299,16 @@ def drive(args, dev, smi: str) -> int:
         return rec
 
     def every_call(name, fn):
-        """The fused kernels update the state in place: keep a copy of the
-        inputs of every call, made before it."""
+        """The fused and shading kernels update their blocks in place: keep
+        a copy of the inputs of every call, made before it."""
         def rec(*a):
             captured.setdefault(name, []).append(clone(a))
             return fn(*a)
         return rec
 
-    # one fused_split frame and one scheme="kernel" frame with the plain
-    # versions, recording the kernels' inputs
-    rec_set = KernelSet(*(every_call(n, f) if n.startswith("sp_") else first_call(n, f)
+    # one fused_split frame and one scheme="kernel" frame (shade_kernel on)
+    # with the plain versions, recording the kernels' inputs
+    rec_set = KernelSet(*(every_call(n, f) if n in in_place else first_call(n, f)
                           for n, f in zip(KernelSet._fields, PLAIN)))
     # the worklist kernels' inputs: the first casts of one dragon stand-in
     # frame through the kernels (flags: primary, shadow 0, bounce 1; key:
@@ -299,16 +324,19 @@ def drive(args, dev, smi: str) -> int:
         return rec
 
     de, animate = dragon_engine(w, h)
-    tracer = PathTracer(w, h, de.scene, de.camera, config, dev, kernels=KERNELS._replace(
-        **{name: first_calls(name, getattr(KERNELS, name)) for name in sparse_names}))
+    tracer = PathTracer(w, h, de.scene, de.camera, config, dev, shade_kernel=True,
+                        kernels=KERNELS._replace(
+        **{name: first_calls(name, getattr(KERNELS, name)) for name in sparse_names},
+        interp_shade=every_call("interp_shade", KERNELS.interp_shade)))
     if tracer.resolved_scheme() != "sparse":
         fail(f"the dragon stand-in resolves to scheme {tracer.resolved_scheme()!r}, not sparse")
     animate(0)
     for k in KERNELS:
         k.launches = 0
     tracer.render_frame()
-    print("[kernel] the dragon frame launched " + ", ".join(
-        f"{name} {getattr(KERNELS, name).launches}x" for name in sparse_names), flush=True)
+    print("[kernel] the dragon frame (shade_kernel on) launched " + ", ".join(
+        f"{name} {getattr(KERNELS, name).launches}x" for name in sparse_names + ("interp_shade",)),
+        flush=True)
     del tracer, de
     if any(len(sparse_calls[name]) < keep[name] for name in sparse_names):
         fail(f"the dragon frame made too few worklist casts: "
@@ -318,8 +346,8 @@ def drive(args, dev, smi: str) -> int:
     if tracer.resolved_scheme() != "fused_split":
         fail(f"theater resolves to scheme {tracer.resolved_scheme()!r}, not fused_split")
     tracer.render_frame()
-    PathTracer(w, h, e.scene, e.camera, config, dev, scheme="kernel",
-               kernels=rec_set).render_frame()
+    PathTracer(w, h, e.scene, e.camera, config, dev, scheme="kernel", kernels=rec_set,
+               shade_kernel=True).render_frame()
     resample = []
 
     def sp_pre_resample(*a):
@@ -333,9 +361,10 @@ def drive(args, dev, smi: str) -> int:
     missing = [n for n in KernelSet._fields if n not in captured and n not in sparse_names]
     if missing or len(resample) != 1:
         fail(f"the frames did not reach {missing or 'a resampling PRE'}")
-    if len(captured["sp_pre"]) != 1 or len(captured["sp_post"]) != config.max_reflections:
-        fail(f"the frame made {len(captured['sp_pre'])} PRE and "
-             f"{len(captured['sp_post'])} POST calls, not 1 and {config.max_reflections}")
+    calls = {n: len(captured[n]) for n in in_place}
+    if calls != {"sp_pre": 1, "sp_post": config.max_reflections,
+                 "shade": config.max_reflections, "interp_shade": config.max_reflections}:
+        fail(f"the frames made {calls} calls of the in-place kernels")
 
     results = {}
 
@@ -382,26 +411,41 @@ def drive(args, dev, smi: str) -> int:
         report(name, label, count, err, cuda_ms(kernel_fn), cuda_ms(plain_fn), bnd, main)
 
     def check_state(name, label, args_, bnd, main=True):
-        """The same for PRE / POST, which update the state (args_[0]) in
-        place: each side runs on its own copy of the recorded state."""
+        """The same for the kernels that update their blocks in place (PRE /
+        POST: the state, args_[0]; shade / interp_shade: the state and the
+        request, args_[0:2]): each side runs on its own copy of the recorded
+        blocks."""
+        blocks = 2 if name in ("shade", "interp_shade") else 1
         ka, pa = clone(args_), clone(args_)
         ko = getattr(KERNELS, name)(*ka)
         po = getattr(PLAIN, name)(*pa)
+        ko = ko if isinstance(ko, tuple) else (ko,)
+        po = po if isinstance(po, tuple) else (po,)
         count, err = differences(ko, po, False)
         extra = ""
         if count:
-            rows = (ko != po).any(dim=1).nonzero().flatten().tolist()
-            rays = int((ko != po).any(dim=0).sum())
-            extra = f" (state rows {rows}, {rays} rays)"
+            for block, a, b in zip(("state", "request"), ko, po):
+                rows = (a != b).any(dim=1).nonzero().flatten().tolist()
+                rays = int((a != b).any(dim=0).sum())
+                extra += f" ({block} rows {rows}, {rays} rays)"
         del ko, po, ka, pa
-        work = args_[0].clone()
-        rest = args_[1:]
-        restore = lambda: work.copy_(args_[0])  # noqa: E731
-        k_ms = cuda_ms(lambda: getattr(KERNELS, name)(work, *rest), setup=restore)
-        p_ms = cuda_ms(lambda: getattr(PLAIN, name)(work, *rest), setup=restore)
+        work = [a.clone() for a in args_[:blocks]]
+        rest = args_[blocks:]
+
+        def restore():
+            for x, a in zip(work, args_):
+                x.copy_(a)
+
+        k_ms = cuda_ms(lambda: getattr(KERNELS, name)(*work, *rest), setup=restore)
+        p_ms = cuda_ms(lambda: getattr(PLAIN, name)(*work, *rest), setup=restore)
         del work
         report(name, label, count, err, k_ms, p_ms, bnd, main, extra)
         return k_ms, p_ms
+
+    def frame_sums(name, sums):
+        """A kernel's numbers in the kernels line are per frame: the sums of
+        its calls."""
+        results[name].update(ms=sums[0], plain_ms=sums[1], bound_ms=sums[2])
 
     # PRE / POST (scheme="fused_split")
     state0, dirs, w4, ids = captured["sp_pre"][0][:4]
@@ -432,9 +476,48 @@ def drive(args, dev, smi: str) -> int:
         k_ms, p_ms = check_state("sp_post", f"bounce {i}, {live} of {n} rays live", call, bnd,
                                  main=(i == 0))
         post_sum = [post_sum[0] + k_ms, post_sum[1] + p_ms, post_sum[2] + bnd[0]]
-    # POST's numbers in the kernels line are per frame: the sum of its calls
-    results["sp_post"].update(ms=post_sum[0], plain_ms=post_sum[1], bound_ms=post_sum[2])
+    frame_sums("sp_post", post_sum)
     del captured["sp_pre"], captured["sp_post"], resample
+    torch.cuda.empty_cache()
+
+    # the shading kernels: shade on the theater frame's bounces (scheme
+    # "kernel"), interp_shade on the dragon frame's (scheme "sparse")
+    def shade_ops(i, n_lights, lights_on):
+        """Float operations of bounce_shade(i) for one live ray."""
+        return (OPS_SHADE + i + (OPS_FIRST_LENGTH if i == 1 else 0) + 2 * per_call
+                + 6 * per_out + n_lights * (OPS_LIGHT + per_call + 2 * per_out)
+                + lights_on * OPS_LIGHT_ON)
+
+    for name in ("shade", "interp_shade"):
+        sums = [0.0, 0.0, 0.0]
+        for call in captured[name]:
+            state, i = call[0], call[-2]
+            lights = call[4] if name == "shade" else call[5]
+            n_lights, lights_on = lights.shape[0], int((lights[:, 1, 0] > 0).sum())
+            n = state.shape[1]
+            extra = 1 if i == 1 else 0
+            if name == "shade":
+                live = int((state[F.SURF] > 0).sum())
+                nbytes = f32 * (n + live * (SHADE_WORDS[0] + SHADE_WORDS[1] + 2 * extra)
+                                + 6 * n_lights)
+                ops = live * shade_ops(i, n_lights, lights_on)
+            else:
+                # the rays the step shades: alive ones that the importance
+                # test keeps, as the plain version decides
+                probe = PLAIN.interp_shade(*clone(call))[0]
+                shaded = probe[F.SURF] > 0
+                live = int(shaded.sum())
+                tris = int(torch.unique(call[0][F.TRI][shaded]).numel())
+                nbytes = f32 * (2 * n + live * (STEP_WORDS[0] + STEP_WORDS[1] + 2 * extra)
+                                + tris * MAT_C + 6 * n_lights)
+                ops = live * (OPS_BOUNCE_PRE + OPS_TEX_SELECT + shade_ops(i, n_lights, lights_on))
+                del probe
+            bnd = bound(nbytes, ops)
+            k_ms, p_ms = check_state(name, f"bounce {i}, {live} of {n} rays shaded", call, bnd,
+                                     main=(i == 0))
+            sums = [sums[0] + k_ms, sums[1] + p_ms, sums[2] + bnd[0]]
+        frame_sums(name, sums)
+        del captured[name]
     torch.cuda.empty_cache()
 
     # the traversal (scheme="kernel")
@@ -570,40 +653,36 @@ def drive(args, dev, smi: str) -> int:
     torch.cuda.empty_cache()
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- 4. the main path through the user's entry points ---------------
-    t0 = time.perf_counter()
-    e = engine(w, h)
-    plain = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=PLAIN)
-    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(args.frames)]
-    del plain
-    torch.cuda.empty_cache()
+    # ---- the frames of phases 4-7, through the user's entry points ----------
+    def drive_frames(label, renderer, n_frames, step=None):
+        """render_frame() n_frames times with every count set to 0 just
+        before; (frames, launches of the run)."""
+        for k in KERNELS:
+            k.launches = 0
+        frames, frame_ms = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_frames):
+            if step is not None:
+                step(i)
+            t = time.perf_counter()
+            frames.append(renderer.render_frame())
+            frame_ms.append((time.perf_counter() - t) * 1000.0)
+        counts = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{label}] {n_frames} frames, scheme {renderer.resolved_scheme()!r}, "
+              f"shade_kernel {renderer.shade_kernel}: ms per frame "
+              f"{[round(x, 1) for x in frame_ms]} (median of frames 2..: "
+              f"{statistics.median(frame_ms[1:] or frame_ms):.1f} ms); peak device memory "
+              f"{peak_gb:.2f} GiB; launches per frame "
+              f"{ {n: c / n_frames for n, c in counts.items() if c} }", flush=True)
+        return frames, counts
 
-    e = engine(w, h)
-    e.renderer = "pathtracer"
-    scheme = e.renderer.resolved_scheme()
-    print(f"[main] theater {w}x{h}: scheme 'auto' resolves to {scheme!r}", flush=True)
-    if scheme != "fused_split":
-        fail("the main path must take scheme='fused_split'")
-    for k in KERNELS:
-        k.launches = 0
-    frames, frame_ms = [], []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(args.frames):
-        t = time.perf_counter()
-        frames.append(e.renderer.render_frame())
-        frame_ms.append((time.perf_counter() - t) * 1000.0)
-    launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_frame = {name: c / args.frames for name, c in launches.items()}
-    print(f"[main] {args.frames} frames: ms per frame {[round(x, 1) for x in frame_ms]} "
-          f"(median of frames 2..: {statistics.median(frame_ms[1:] or frame_ms):.1f} ms); "
-          f"peak device memory {peak_gb:.2f} GiB; launches per frame {per_frame}", flush=True)
-    if per_frame["sp_pre"] != 1 or per_frame["sp_post"] != config.max_reflections:
-        fail(f"expected 1 PRE and {config.max_reflections} POST launches per frame")
-    idle = [name for name in ("sp_pre", "sp_post", "first_blur", "second_blur", "final_blur",
-                              "fxaa") if launches[name] == 0]
-    if idle:
-        fail(f"kernels not launched on the main path: {idle}")
+    def expect_launches(label, counts, n_frames, expect):
+        """Fail unless each kernel of `expect` ran its count per frame."""
+        wrong = {name: counts[name] / n_frames for name, c in expect.items()
+                 if counts[name] != c * n_frames}
+        if wrong:
+            fail(f"{label}: launches per frame {wrong}, expected {expect}")
 
     def check_frames(label, frames, plain_frames, shape):
         """The last frame's shape, finite values and light; each frame
@@ -624,6 +703,27 @@ def drive(args, dev, smi: str) -> int:
         print(f"[{label}] output {list(last.shape)}, mean {float(last.mean()):.4f}, finite",
               flush=True)
 
+    # ---- 4. the main path through the user's entry points ---------------
+    t0 = time.perf_counter()
+    e = engine(w, h)
+    plain = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=PLAIN)
+    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(args.frames)]
+    del plain
+    torch.cuda.empty_cache()
+
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    scheme = e.renderer.resolved_scheme()
+    print(f"[main] theater {w}x{h}: scheme 'auto' resolves to {scheme!r}", flush=True)
+    if scheme != "fused_split":
+        fail("the main path must take scheme='fused_split'")
+    bounces = config.max_reflections
+    frames, launches = drive_frames("main", e.renderer, args.frames)
+    expect_launches("the main path", launches, args.frames, {"sp_pre": 1, "sp_post": bounces})
+    idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
+            if launches[name] == 0]
+    if idle:
+        fail(f"kernels not launched on the main path: {idle}")
     check_frames("main", frames, plain_frames, (h, w, 3))
     del frames, plain_frames, e
     torch.cuda.empty_cache()
@@ -639,14 +739,9 @@ def drive(args, dev, smi: str) -> int:
     e = engine(w2, h2)
     e.renderer = "pathtracer"
     e.renderer.scheme = "kernel"
-    for k in KERNELS:
-        k.launches = 0
-    frames = [e.renderer.render_frame() for _ in range(n2)]
-    kernel_launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
-    print(f"[kernel-path] theater {w2}x{h2}, scheme {e.renderer.resolved_scheme()!r}, {n2} "
-          f"frames: launches {kernel_launches}", flush=True)
+    frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer, n2)
     idle = [name for name, c in kernel_launches.items()
-            if c == 0 and not name.startswith("sp_") and name not in sparse_names]
+            if c == 0 and name not in in_place + sparse_names]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
@@ -664,27 +759,10 @@ def drive(args, dev, smi: str) -> int:
           f"scheme 'auto' resolves to {scheme!r}", flush=True)
     if scheme != "sparse":
         fail("the dragon stand-in must take scheme='sparse'")
-    for k in KERNELS:
-        k.launches = 0
-    frames, frame_ms = [], []
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(args.frames):
-        animate(i)
-        t = time.perf_counter()
-        frames.append(e.renderer.render_frame())
-        frame_ms.append((time.perf_counter() - t) * 1000.0)
-    sparse_launches = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_frame = {name: c / args.frames for name, c in sparse_launches.items()}
-    print(f"[sparse-path] {args.frames} frames: ms per frame {[round(x, 1) for x in frame_ms]} "
-          f"(median of frames 2..: {statistics.median(frame_ms[1:] or frame_ms):.1f} ms); "
-          f"peak device memory {peak_gb:.2f} GiB; launches per frame {per_frame}", flush=True)
-    bounces = config.max_reflections
+    frames, sparse_launches = drive_frames("sparse-path", e.renderer, args.frames, step=animate)
     expect = {"sparse_flags": 2 * bounces, "sparse_key": 2 * bounces - 1,
               "sparse_closest": bounces, "sparse_any": bounces}
-    wrong = {name: per_frame[name] for name, c in expect.items() if per_frame[name] != c}
-    if wrong:
-        fail(f"worklist kernel launches per frame {wrong}, expected {expect}")
+    expect_launches("the dragon stand-in", sparse_launches, args.frames, expect)
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if sparse_launches[name] == 0]
     if idle:
@@ -700,6 +778,38 @@ def drive(args, dev, smi: str) -> int:
     check_frames("sparse-path", frames, plain_frames, (h, w, 3))
     print(f"[phase] sparse path: {time.perf_counter() - t0:.1f} s (the plain frames "
           f"{plain_s:.1f} s)", flush=True)
+    del frames, e
+
+    # ---- 7. the shade-kernel paths ------------------------------------------
+    t0 = time.perf_counter()
+    # (a) the dragon stand-in: interp_shade, against phase 6's plain frames
+    e, animate = dragon_engine(w, h)
+    e.renderer = "pathtracer"
+    e.renderer.shade_kernel = True
+    frames, step_launches = drive_frames("shade-kernel dragon", e.renderer, args.frames,
+                                         step=animate)
+    expect_launches("the dragon with shade_kernel", step_launches, args.frames,
+                    dict(expect, interp_shade=bounces, shade=0))
+    check_frames("shade-kernel dragon", frames, plain_frames, (h, w, 3))
+    del frames, plain_frames, e
+    torch.cuda.empty_cache()
+    # (b) theater on scheme="kernel": shade, against its plain frames
+    e = engine(w, h)
+    plain = PathTracer(w, h, e.scene, e.camera, config, dev, scheme="kernel", kernels=PLAIN)
+    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(n2)]
+    del plain
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    e.renderer.scheme = "kernel"
+    e.renderer.shade_kernel = True
+    frames, shade_launches = drive_frames("shade-kernel theater", e.renderer, n2)
+    expect_launches("theater on scheme='kernel' with shade_kernel", shade_launches, n2,
+                    {"shade": bounces, "interp_shade": 0, "closest_hit": bounces,
+                     "any_hit": bounces})
+    check_frames("shade-kernel theater", frames, plain_frames, (h, w, 3))
+    del frames, plain_frames, e
+    torch.cuda.empty_cache()
+    print(f"[phase] shade-kernel paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
@@ -710,6 +820,8 @@ def drive(args, dev, smi: str) -> int:
         launches[name] = kernel_launches[name]
     for name in sparse_names:
         launches[name] = sparse_launches[name]
+    launches["interp_shade"] = step_launches["interp_shade"]
+    launches["shade"] = shade_launches["shade"]
     kernels = []
     for name, k in zip(KernelSet._fields, KERNELS):
         kernels.append({"name": name, "route": "cuda", "source": k.source,

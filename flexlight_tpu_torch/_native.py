@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "flexlight_kernels"
-SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu", "sparse.cu")
+SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu", "sparse.cu", "shade.cu")
 HEADERS = ("common.cuh", "trace.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
@@ -71,6 +71,12 @@ SIGNATURES = {
     "fl_sparse_closest": [_P, _I, _P, _P, _P, _I] + [_P] * 7 + [_F, _I, _I] + [_P] * 4 + [_P],
     # w4, tp, tlist, counts, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, n, hit, stream
     "fl_sparse_any": [_P, _I, _P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
+    # state, req, tex, ndc, lights, n_lights, cam, seed, cos_sample_n, bounce,
+    # counter, n, stream
+    "fl_shade": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _P],
+    # state, req, ndc, mat, atlas, lights, n_lights, cam, seed, cos_sample_n,
+    # bounce, counter, min_importance, n, stream
+    "fl_interp_shade": [_P] * 6 + [_I] + [_P] * 3 + [_I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

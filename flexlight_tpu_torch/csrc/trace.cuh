@@ -1,5 +1,6 @@
 // Per-ray path-tracing arithmetic shared by the traversal kernels
-// (intersect.cu) and the fused per-bounce kernels (fused.cu).
+// (intersect.cu, sparse.cu), the fused per-bounce kernels (fused.cu) and
+// the shading kernels (shade.cu).
 //
 // Every function takes the float operations of its plain PyTorch
 // counterpart in the same order, so that with --fmad=false (and
@@ -10,6 +11,9 @@
 //   the BRDF            ops/brdf.py (forward_trace_soa)
 //   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]),
 //                       which the sparse worklist kernels (sparse.cu) share
+//   bounce stages       ops/pathtrace.py bounce_pre, bounce_shade (with
+//                       reservoir_select), over the carry rows of a state
+//                       block (ops/fused.py's layout)
 // Constants are the float32 roundings of the Python doubles that torch
 // casts them from, written as (float)<double>.
 #pragma once
@@ -369,4 +373,278 @@ __device__ __forceinline__ bool fl_block_any(const float* __restrict__ w4, int t
         __syncthreads();
     }
     return hit;
+}
+
+// ---- the bounce stages (ops/pathtrace.py), shared by fused.cu and shade.cu --
+
+#define FL_MAX_LIGHTS 256
+#define FL_MAT_C 49
+
+// carry rows of a state block (ops/fused.py), then the surface rows
+#define FL_ALIVE 0
+#define FL_TRI 1
+#define FL_HS 2
+#define FL_HU 3
+#define FL_HV 4
+#define FL_RAY_ORIGIN 5
+#define FL_RAY_DIR 8
+#define FL_LAST_HIT 11
+#define FL_IMPORTANCY 14
+#define FL_ORIGINAL_COLOR 17
+#define FL_DONT_FILTER 20
+#define FL_FINAL_COLOR 21
+#define FL_RENDER_ID 24
+#define FL_GLASS 28
+#define FL_RME_X 29
+#define FL_TPO_X 30
+#define FL_FIRST_RAY_LENGTH 31
+#define FL_SURF 32
+
+// The loop-carried state of one ray (ops/pathtrace.py BounceCarry).
+struct fl_carry {
+    bool alive;
+    int tri;
+    float hs, hu, hv;
+    fl_v3 ray_origin, ray_dir, last_hit, importancy, original_color;
+    bool dont_filter;
+    fl_v3 final_color;
+    float render_id[4];
+    float glass, rme_x, tpo_x, first_ray_length;
+};
+
+// bounce_pre's surface (ops/pathtrace.py BounceSurface).
+struct fl_surface {
+    bool m;
+    fl_v3 smooth_normal;
+    float geometry_offset, bary_u, bary_v;
+    float tex[12];  // tex nums (3), inline albedo (3), rme (3), tpo (3)
+};
+
+// bounce_shade's request (ops/pathtrace.py ShadeRequest and ReservoirPick).
+struct fl_shade_req {
+    fl_v3 ray_dir, smooth_normal, random_sphere;
+    float sign_dir, roughness_brdf;
+    bool is_solid, write_id_w;
+    fl_v3 local_color;
+    int res_num;
+    bool show_color, show_shadow;
+    fl_v3 offset_target, light_dir;
+    float max_len;
+};
+
+__device__ __forceinline__ float fl_row(const float* st, int n, int row, int i) {
+    return st[(size_t)row * n + i];
+}
+
+__device__ __forceinline__ void fl_put(float* st, int n, int row, int i, float x) {
+    st[(size_t)row * n + i] = x;
+}
+
+__device__ __forceinline__ fl_carry fl_read_carry(const float* st, int n, int i) {
+    fl_carry c;
+    c.alive = fl_row(st, n, FL_ALIVE, i) > 0.0f;
+    c.tri = (int)fl_row(st, n, FL_TRI, i);
+    c.hs = fl_row(st, n, FL_HS, i);
+    c.hu = fl_row(st, n, FL_HU, i);
+    c.hv = fl_row(st, n, FL_HV, i);
+    c.ray_origin = fl_load3(st + (size_t)FL_RAY_ORIGIN * n, n, i);
+    c.ray_dir = fl_load3(st + (size_t)FL_RAY_DIR * n, n, i);
+    c.last_hit = fl_load3(st + (size_t)FL_LAST_HIT * n, n, i);
+    c.importancy = fl_load3(st + (size_t)FL_IMPORTANCY * n, n, i);
+    c.original_color = fl_load3(st + (size_t)FL_ORIGINAL_COLOR * n, n, i);
+    c.dont_filter = fl_row(st, n, FL_DONT_FILTER, i) > 0.0f;
+    c.final_color = fl_load3(st + (size_t)FL_FINAL_COLOR * n, n, i);
+    for (int k = 0; k < 4; ++k) c.render_id[k] = fl_row(st, n, FL_RENDER_ID + k, i);
+    c.glass = fl_row(st, n, FL_GLASS, i);
+    c.rme_x = fl_row(st, n, FL_RME_X, i);
+    c.tpo_x = fl_row(st, n, FL_TPO_X, i);
+    c.first_ray_length = fl_row(st, n, FL_FIRST_RAY_LENGTH, i);
+    return c;
+}
+
+__device__ __forceinline__ void fl_write_carry(float* st, int n, int i, const fl_carry& c) {
+    fl_put(st, n, FL_ALIVE, i, c.alive ? 1.0f : 0.0f);
+    fl_put(st, n, FL_TRI, i, (float)c.tri);
+    fl_put(st, n, FL_HS, i, c.hs);
+    fl_put(st, n, FL_HU, i, c.hu);
+    fl_put(st, n, FL_HV, i, c.hv);
+    fl_store3(st + (size_t)FL_RAY_ORIGIN * n, n, i, c.ray_origin);
+    fl_store3(st + (size_t)FL_RAY_DIR * n, n, i, c.ray_dir);
+    fl_store3(st + (size_t)FL_LAST_HIT * n, n, i, c.last_hit);
+    fl_store3(st + (size_t)FL_IMPORTANCY * n, n, i, c.importancy);
+    fl_store3(st + (size_t)FL_ORIGINAL_COLOR * n, n, i, c.original_color);
+    fl_put(st, n, FL_DONT_FILTER, i, c.dont_filter ? 1.0f : 0.0f);
+    fl_store3(st + (size_t)FL_FINAL_COLOR * n, n, i, c.final_color);
+    for (int k = 0; k < 4; ++k) fl_put(st, n, FL_RENDER_ID + k, i, c.render_id[k]);
+    fl_put(st, n, FL_GLASS, i, c.glass);
+    fl_put(st, n, FL_RME_X, i, c.rme_x);
+    fl_put(st, n, FL_TPO_X, i, c.tpo_x);
+    fl_put(st, n, FL_FIRST_RAY_LENGTH, i, c.first_ray_length);
+}
+
+// bounce_pre (glsl:475-526): importance kill, material row fetch, hit-point
+// update, normal interpolation, texture coordinates.
+__device__ __forceinline__ fl_surface fl_bounce_pre(fl_carry& c, const float* __restrict__ mat,
+                                                    float min_importance) {
+    float importance_len = fl_norm3(fl_mul3(c.importancy, c.original_color));
+    c.alive = c.alive && (importance_len >= min_importance);
+    fl_surface s;
+    s.m = c.alive;
+    const float* row = mat + (size_t)c.tri * FL_MAT_C;
+    float rot[9];
+    for (int k = 0; k < 9; ++k) rot[k] = row[40 + k];
+    fl_v3 new_origin = fl_add3(fl_scale3(c.ray_dir, c.hs), c.ray_origin);
+    c.ray_origin = fl_where3(s.m, new_origin, c.ray_origin);
+    float uvw[3] = {1.0f - c.hu - c.hv, c.hu, c.hv};
+    fl_v3 wv[3];
+    for (int k = 0; k < 3; ++k) wv[k] = fl_make3(row[3 * k], row[3 * k + 1], row[3 * k + 2]);
+    fl_v3 geometry_normal =
+        fl_normalize3(fl_cross3(fl_sub3(wv[0], wv[1]), fl_sub3(wv[0], wv[2])));
+    fl_v3 smooth_normal = fl_make3(0.0f, 0.0f, 0.0f);
+    float geometry_offset = 0.0f, bary_u = 0.0f, bary_v = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+        fl_v3 vn = fl_make3(row[12 + 3 * k], row[13 + 3 * k], row[14 + 3 * k]);
+        fl_v3 wn = fl_matvec3(rot, vn);
+        smooth_normal = fl_add3(smooth_normal, fl_scale3(wn, uvw[k]));
+        // tan(acos(x)) = sqrt(1-x^2)/x: shadow-acne offset (glsl:516-518)
+        float cos_a = fabsf(fl_clamp(fl_dot3(geometry_normal, wn), -1.0f, 1.0f));
+        float tan_a = fl_clamp(sqrtf(1.0f - cos_a * cos_a) / cos_a, 0.0f, 1.0f);
+        float diff = fl_norm3(fl_sub3(c.ray_origin, wv[k]));
+        geometry_offset = geometry_offset + diff * tan_a * uvw[k];
+        bary_u = bary_u + row[21 + 2 * k] * uvw[k];
+        bary_v = bary_v + row[22 + 2 * k] * uvw[k];
+    }
+    s.smooth_normal = fl_normalize3(smooth_normal);
+    s.geometry_offset = geometry_offset;
+    s.bary_u = bary_u;
+    s.bary_v = bary_v;
+    for (int k = 0; k < 12; ++k) s.tex[k] = row[27 + k];
+    return s;
+}
+
+// to_4bit_representation (glsl:91-95)
+__device__ __forceinline__ float fl_4bit(float a, float b) {
+    long long aui = (long long)(a * 255.0f) & 240;
+    long long bui = ((long long)(b * 255.0f) & 240) >> 4;
+    return (float)(aui | bui) * FL_INV_255;
+}
+
+// bounce_shade (glsl:529-576) with reservoir_select (glsl:400-447) of one
+// live ray, up to the NEE shadow ray: shading frame, RNG, Fresnel-chance
+// decision, first-surface bookkeeping and render_id packing (atan2 runs
+// here), the reservoir over the `n_lights` lights `sl` (rows of 6:
+// position, strength, variation). Updates the carry's importancy,
+// original_color, dont_filter, render_id[0..2], glass, rme_x, tpo_x and
+// first_ray_length; returns the request.
+__device__ __forceinline__ fl_shade_req fl_bounce_shade(
+    fl_carry& c, fl_v3 smooth_normal, float geometry_offset, fl_v3 albedo, float rough,
+    float metal, float emis, fl_v3 tpo, float ndc0, float ndc1, const float* sl,
+    int n_lights, const float* cam, float random_seed, float cos_sample_n, int bounce,
+    int counter) {
+    fl_shade_req q;
+    fl_v3 ray_dir = fl_normalize3(fl_sub3(c.ray_origin, c.last_hit));
+    float sign_dir = fl_sign(fl_dot3(ray_dir, smooth_normal));
+    smooth_normal = fl_scale3(smooth_normal, -sign_dir);
+
+    float rv[4];
+    fl_noise(counter, ndc0, ndc1, (float)bounce + cos_sample_n, random_seed, 0, 4, rv);
+    fl_v3 random_sphere = fl_normalize3(
+        fl_add3(smooth_normal, fl_normalize3(fl_make3(rv[0], rv[1], rv[2]))));
+    float brdf = 1.0f + (fabsf(fl_dot3(smooth_normal, ray_dir)) - 1.0f) * metal;
+    float roughness_brdf = rough * brdf;
+    fl_v3 rough_normal = fl_normalize3(fl_mix3(smooth_normal, random_sphere, roughness_brdf));
+
+    fl_v3 h = fl_normalize3(fl_sub3(rough_normal, ray_dir));
+    float v_dot_h = fl_clamp_min(-fl_dot3(ray_dir, h), 0.0f);
+    float one_m_theta5 = fl_pow5(1.0f - v_dot_h);
+    float alb[3] = {albedo.x, albedo.y, albedo.z};
+    float fresnel_reflect = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+        float f0 = alb[k] * brdf;
+        fresnel_reflect = fl_maximum(fresnel_reflect, f0 + (1.0f - f0) * one_m_theta5);
+    }
+    // Fresnel-chance solid/translucent decision (glsl:550)
+    bool is_solid = tpo.x * fresnel_reflect <= fabsf(rv[3]);
+
+    // first-surface bookkeeping vs importancy accumulation (glsl:553-573)
+    bool df = c.dont_filter;  // && m
+    if (df) {
+        c.tpo_x = tpo.x;
+        c.original_color = fl_mul3(c.original_color, albedo);
+        c.rme_x = c.rme_x + rough;
+    }
+    float phi = atan2f(smooth_normal.z, smooth_normal.x) * FL_INV_PI * 0.5f + 0.5f;
+    float theta = atan2f(smooth_normal.x, smooth_normal.y) * FL_INV_PI * 0.5f + 0.5f;
+    float idu[3] = {fl_4bit(phi, theta), rough, fl_4bit(metal, emis)};
+    float scale_i = 1.0f;
+    for (int k = 0; k < bounce; ++k) scale_i = scale_i * 0.5f;
+    for (int k = 0; k < 3; ++k)
+        c.render_id[k] = c.render_id[k] + (df ? scale_i * idu[k] : 0.0f);
+    bool new_dont_filter = ((rough < (float)0.01) && is_solid) || !is_solid;
+    bool is_glass = is_solid && (tpo.x > (float)0.01);
+    if (df && is_glass) c.glass = c.glass + 1.0f;
+    new_dont_filter = new_dont_filter && !is_glass;
+    if (!c.dont_filter) c.importancy = fl_mul3(c.importancy, albedo);
+    c.dont_filter = (df && new_dont_filter) || (!df && c.dont_filter);
+
+    if (bounce == 1) {
+        float ratio = fl_norm3(fl_sub3(c.ray_origin, c.last_hit))
+                      / fl_clamp_min(fl_norm3(fl_sub3(c.last_hit, fl_make3(cam[0], cam[1],
+                                                                           cam[2]))),
+                                     FL_TINY);
+        c.first_ray_length = fl_minimum(ratio, c.first_ray_length);
+    }
+
+    // ---- reservoir_select (glsl:400-447) ----
+    fl_v3 n_rough = fl_scale3(rough_normal, -sign_dir);
+    fl_v3 n_smooth = fl_scale3(smooth_normal, -sign_dir);
+    fl_v3 local_color = fl_make3(0.0f, 0.0f, 0.0f);
+    float res_length = 0.0f, total_weight = 0.0f, res_weight = 0.0f;
+    int res_num = 0;
+    fl_v3 res_dir = fl_make3(0.0f, 0.0f, 0.0f);
+    float lr[4];
+    fl_noise(counter, rv[2], rv[3], FL_BIAS, random_seed, 0, 2, lr);
+    fl_v3 v = fl_neg3(ray_dir);
+    for (int j = 0; j < n_lights; ++j) {
+        const float* row = sl + 6 * j;
+        float strength = row[3];
+        float variation = row[4];
+        bool active = strength > 0.0f;  // skip dead lights (glsl:415)
+        fl_v3 light = fl_make3(row[0] + rv[0] * variation, row[1] + rv[1] * variation,
+                               row[2] + rv[2] * variation);
+        fl_v3 d = fl_sub3(light, c.ray_origin);
+        fl_v3 cfl = fl_forward_trace(albedo, rough, metal, d, strength, n_rough, v);
+        float weight = fl_norm3(cfl);
+        if (active) {
+            local_color = fl_add3(local_color, cfl);
+            res_length = res_length + 1.0f;
+            total_weight = total_weight + weight;
+        }
+        bool sel = active && (fabsf(lr[1]) * total_weight <= weight);
+        if (sel) {
+            res_num = j;
+            res_weight = weight;
+            res_dir = d;
+        }
+        fl_noise(counter, lr[0], lr[1], FL_BIAS, random_seed, 2, 4, lr);
+        if (active) {
+            lr[0] = lr[2];
+            lr[1] = lr[3];
+        }
+    }
+    q.ray_dir = ray_dir;
+    q.smooth_normal = smooth_normal;
+    q.sign_dir = sign_dir;
+    q.random_sphere = random_sphere;
+    q.roughness_brdf = roughness_brdf;
+    q.is_solid = is_solid;
+    q.write_id_w = c.dont_filter || bounce == 0;  // && m
+    q.local_color = local_color;
+    q.res_num = res_num;
+    q.light_dir = fl_normalize3(res_dir);
+    q.show_color = (res_length == 0.0f) || (res_weight == 0.0f);
+    q.show_shadow = fl_dot3(n_smooth, q.light_dir) <= FL_BIAS;
+    q.offset_target = fl_add3(c.ray_origin, fl_scale3(n_smooth, geometry_offset));
+    q.max_len = fl_norm3(res_dir);
+    return q;
 }

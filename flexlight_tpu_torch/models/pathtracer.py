@@ -11,7 +11,10 @@ versions, which run the same frame without any kernel of this package.
 A frame launches the traversal kernels (scheme="kernel"), the fused
 PRE / POST kernels (scheme="fused_split") or the worklist kernels of large
 scenes (scheme="sparse": tile flags, nearest2 sort key, closest hit, any
-hit), and the filter and FXAA kernels either way.
+hit), and the filter and FXAA kernels either way. With the renderer's
+`shade_kernel` switch on (off by default, as in flexlight_tpu), the
+kernel and sparse schemes shade each bounce in one kernel: interp_shade
+on scenes without textures (1x1 atlases), else shade.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..ops.intersect_kernel import any_hit, closest_hit
 from ..ops.intersect_sparse_kernel import (sparse_any, sparse_closest, sparse_flags,
                                            sparse_key)
 from ..ops.pathtrace import render_mrt
+from ..ops.shade_kernel import interp_shade, shade
 from ..post.common import quantize_rgba8, split_hdr
 from ..post.filter_kernel import (final_blur, final_filter_packed, first_blur,
                                   first_filter_packed, pack_rgba8, second_blur,
@@ -53,11 +57,13 @@ class KernelSet(NamedTuple):
     sparse_key: Callable
     sparse_closest: Callable
     sparse_any: Callable
+    shade: Callable
+    interp_shade: Callable
 
 
 KERNELS = KernelSet(closest_hit, any_hit, first_blur, second_blur, final_blur,
                     fxaa_cuda, sp_pre, sp_post, sparse_flags, sparse_key, sparse_closest,
-                    sparse_any)
+                    sparse_any, shade, interp_shade)
 PLAIN = KernelSet(*(k.plain for k in KERNELS))
 
 
@@ -157,17 +163,20 @@ def postprocess_mrt(mrt, temporal_state: TemporalState, width: int, height: int,
 
 def frame_pipeline(buffers, cam_pos, view, random_seed, temporal_state: TemporalState,
                    width: int, height: int, config: Config,
-                   kernels: KernelSet = KERNELS, scheme: str = "kernel"):
+                   kernels: KernelSet = KERNELS, scheme: str = "kernel",
+                   shade_kernel: bool = False):
     """One full frame: MRT path-trace pass + post."""
     mrt = render_mrt(buffers, width, height, cam_pos, view, config, random_seed,
-                     scheme=scheme, kernels=kernels)
+                     scheme=scheme, kernels=kernels, shade_kernel=shade_kernel)
     return postprocess_mrt(mrt, temporal_state, width, height, config, kernels)
 
 
 class PathTracer:
     """The renderer object with the reference's surface (render / halt /
     updateScene / updatePrimaryLightSources / fps / fpsLimit), on one
-    explicit torch device."""
+    explicit torch device. `shade_kernel` (an attribute too) shades the
+    bounces of the kernel and sparse schemes in the kernels of ops.shade;
+    a frame raises where they cannot serve (render_mrt)."""
 
     type = "pathtracer"
     # from this many triangles on, "auto" takes the sparse worklist casts
@@ -175,7 +184,8 @@ class PathTracer:
     SPARSE_MIN_TRIS = 4096
 
     def __init__(self, width, height, scene, camera, config, device,
-                 scheme: str = "auto", kernels: KernelSet = KERNELS):
+                 scheme: str = "auto", kernels: KernelSet = KERNELS,
+                 shade_kernel: bool = False):
         self.scene = scene
         self.camera = camera
         self.config = config
@@ -184,6 +194,7 @@ class PathTracer:
         self.canvas_height = int(height)
         self.scheme = scheme
         self.kernels = kernels
+        self.shade_kernel = shade_kernel
         self.fps = 0.0
         self.fps_limit = float("inf")
         self.freeze = False
@@ -312,7 +323,7 @@ class PathTracer:
         display, self._temporal_state = frame_pipeline(
             self._buffers, self.camera.position, view, random_seed,
             self._temporal_state, self.width, self.height, self.config,
-            self.kernels, scheme=scheme)
+            self.kernels, scheme=scheme, shade_kernel=self.shade_kernel)
         self._frame_count += 1
         return display
 

@@ -13,7 +13,10 @@ with the traversals in the closest-hit / any-hit kernels of
 ops.intersect_kernel, scheme="sparse" the same around the worklist casts
 of ops.intersect_sparse (large scenes); scheme="fused_split" (ops.fused)
 runs everything but bounce_tex in two fused kernels whose plain versions
-are built from the same stages.
+are built from the same stages. On the kernel and sparse schemes,
+render_mrt(shade_kernel=True) runs the shading in the kernels of
+ops.shade instead (bounce_shade, or bounce_pre + a trivial bounce_tex +
+bounce_shade), through light_trace's hooks.
 
 The carry has no counterpart of flexlight_tpu's `original_id_acc`: no
 render target reads it.
@@ -485,16 +488,27 @@ def bounce_post(carry: BounceCarry, surface: BounceSurface, tex, i: int,
 
 def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
                 direction3, ndc2, cos_sample_n, config, random_seed,
-                traverse_soa, shadow_soa, aux):
+                traverse_soa, shadow_soa, aux, bounce_post_impl=None,
+                bounce_step_impl=None):
     """The bounce loop (glsl:464-599) with kill masks, SoA over [N].
-    `aux` carries the shader's globals across samples (glsl:84-89)."""
+    `aux` carries the shader's globals across samples (glsl:84-89).
+
+    The hooks are flexlight_tpu's (ops/pathtrace.py:806-852), through
+    which the shading kernels of ops.shade enter: `bounce_post_impl`
+    takes bounce_post's place after the eager bounce_pre and bounce_tex,
+    `bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
+    traverse_soa, shadow_soa)` the whole bounce."""
+    post = bounce_post if bounce_post_impl is None else bounce_post_impl
     carry = bounce_carry_init(primary_parts, camera_pos, direction3, aux)
     for i in range(config.max_reflections):
+        if bounce_step_impl is not None:
+            carry = bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
+                                     traverse_soa, shadow_soa)
+            continue
         carry, surface = bounce_pre(carry, i, mat, config)
         tex = bounce_tex(buffers, surface)
-        carry = bounce_post(carry, surface, tex, i, buffers, camera_pos, ndc2,
-                            cos_sample_n, config, random_seed, traverse_soa,
-                            shadow_soa)
+        carry = post(carry, surface, tex, i, buffers, camera_pos, ndc2, cos_sample_n,
+                     config, random_seed, traverse_soa, shadow_soa)
     final_color = tuple(carry.final_color[c] + carry.importancy[c] * buffers.ambient[c]
                         for c in range(3))
     aux = (carry.render_id, carry.glass, carry.original_rme_x,
@@ -572,7 +586,7 @@ def _casts(scheme: str, buffers: SceneBuffers, world_geom, kernels):
 
 def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "kernel",
-               kernels=None) -> MRT:
+               kernels=None, shade_kernel: bool = False) -> MRT:
     """Full primary + bounce render to the MRT contract (glsl:601-646).
     Returns flat [N = H*W] per-pixel outputs.
 
@@ -589,8 +603,19 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
     ops.fused_kernel's wrappers). `kernels` may be any object with those
     attributes, such as models.pathtracer.PLAIN. The other schemes of
-    flexlight_tpu are listed in ROADMAP.md."""
+    flexlight_tpu are listed in ROADMAP.md.
+
+    `shade_kernel=True` (kernel and sparse schemes) runs each bounce's
+    shading in a kernel of ops.shade, routed as flexlight_tpu routes
+    (ops/pathtrace.py:1320-1345): scenes whose three atlases are 1x1 take
+    `kernels.interp_shade` (bounce_pre, texture select and bounce_shade),
+    other scenes with <= 256 lights `kernels.shade` (bounce_shade); default
+    ops.shade_kernel's wrappers. Where neither applies, or on
+    scheme="fused_split", it raises."""
     if scheme == "fused_split":
+        if shade_kernel:
+            raise ValueError("shade_kernel=True shades the bounces of scheme='kernel' and "
+                             "'sparse'; scheme='fused_split' shades inside its POST kernel")
         from .fused import render_mrt_fused_split
 
         return render_mrt_fused_split(buffers, width, height, camera_pos,
@@ -600,6 +625,19 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         raise NotImplementedError(
             f"scheme={scheme!r} is not ported (ROADMAP.md, Queue 2); the port "
             "renders with scheme='kernel', 'sparse' or 'fused_split'")
+    bounce_post_impl = bounce_step_impl = None
+    if shade_kernel:
+        from . import shade
+
+        if shade.fused_step_eligible(buffers):
+            bounce_step_impl = shade.make_fused_bounce_step(buffers, camera_pos, config,
+                                                            kernels)
+        elif shade.shade_kernel_eligible(buffers):
+            bounce_post_impl = shade.make_shade_bounce_post(buffers, camera_pos, config,
+                                                            kernels)
+        else:
+            raise ValueError(f"shade_kernel=True: the scene has {buffers.lights.shape[0]} "
+                             f"lights, the shading kernels take <= {shade.MAX_LIGHTS}")
 
     dev = buffers.geometry.device
     camera_pos = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
@@ -638,7 +676,8 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         cos_sample_n = f32(sample_cos(s), zero)
         color, original_color, original_tpo_x, aux = light_trace(
             buffers, mat, primary_parts, camera_pos, direction3, ndc2,
-            cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux)
+            cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux,
+            bounce_post_impl=bounce_post_impl, bounce_step_impl=bounce_step_impl)
         total = v3.add3(total, color)
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
     mrt = assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,

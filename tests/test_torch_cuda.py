@@ -161,3 +161,81 @@ def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, 
     assert img.shape == (64, 128, 3) and np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_img)
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+
+
+@pytest.fixture(scope="module")
+def shade_frames(dev, tmp_path_factory):
+    """shade_kernel=True frames: theater at 96x64 on scheme="kernel" (its
+    textured floor takes the shade kernel) and the dragon stand-in at
+    128x64 ("auto": sparse; no textures, so interp_shade), each first with
+    the plain versions, recording every shading call's inputs, then through
+    the kernels, counting launches. Theater first: the dragon resets the
+    transform registry."""
+    from flexlight_tpu_torch import reset_global_registry
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
+
+    calls = []
+
+    def recorder(fn):
+        def rec(*a):
+            calls.append(_clone(a))
+            return fn(*a)
+        return rec
+
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=1, max_reflections=3)
+    out = {}
+    for name in ("theater", "dragon"):
+        reset_global_registry()
+        if name == "theater":
+            e, animate, kind, size = theater(stand_in_wood_texture(0), device=dev), None, \
+                "shade", (96, 64)
+        else:
+            e, animate = dragon(0, tmp_path_factory.mktemp("objects"), device=dev)
+            kind, size = "interp_shade", (128, 64)
+            animate(0.0)
+        scheme = "kernel" if name == "theater" else "auto"
+        calls.clear()
+        plain = PLAIN._replace(**{kind: recorder(getattr(PLAIN, kind))})
+        plain_img = PathTracer(*size, e.scene, e.camera, cfg, dev, scheme=scheme, kernels=plain,
+                               shade_kernel=True).render_frame()
+        counts = [k.launches for k in KERNELS]
+        img = PathTracer(*size, e.scene, e.camera, cfg, dev, scheme=scheme,
+                         shade_kernel=True).render_frame()
+        ran = {n: k.launches - c for n, k, c in zip(KernelSet._fields, KERNELS, counts)
+               if k.launches > c}
+        out[name] = (kind, list(calls), plain_img, img, ran)
+    return out
+
+
+@pytest.mark.parametrize("name", ["theater", "dragon"])
+def test_shade_kernels_match_plain_on_the_card(shade_frames, name):
+    """Each shading call's state and request blocks: identical."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+
+    kind, calls, *_ = shade_frames[name]
+    assert len(calls) == 3
+    kernel = getattr(KERNELS, kind)
+    for args in calls:
+        before = kernel.launches
+        got = kernel(*_clone(args))
+        ref = getattr(PLAIN, kind)(*_clone(args))
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for a, b in zip(got, ref):
+            assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["theater", "dragon"])
+def test_shade_kernel_frame_matches_the_plain_frame(shade_frames, name):
+    kind, _, plain_img, img, ran = shade_frames[name]
+    post = {"first_blur": 3, "second_blur": 3, "final_blur": 1, "fxaa": 1}
+    if name == "theater":
+        assert ran == {"closest_hit": 3, "any_hit": 3, "shade": 3, **post}
+    else:
+        assert ran == {"sparse_flags": 6, "sparse_key": 5, "sparse_closest": 3,
+                       "sparse_any": 3, "interp_shade": 3, **post}
+    assert np.isfinite(img).all() and img.max() > 0
+    d = np.abs(img - plain_img)
+    assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5

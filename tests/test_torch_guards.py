@@ -166,3 +166,56 @@ def test_u8_frames_and_light_updates():
     r.update_primary_light_sources()
     assert r._buffers.geometry is geometry
     assert float(r._buffers.lights[0, 1, 0]) == 7.0
+
+
+def test_the_port_reads_no_flexlight_environment_variable(monkeypatch):
+    """flexlight_tpu takes knobs from FLEXLIGHT_* environment variables at
+    trace time (FLEXLIGHT_SHADE_KERNEL, FLEXLIGHT_FORCE_2D, ...); the port
+    takes arguments. No module of flexlight_tpu_torch names such a
+    variable outside its docstrings and comments, and CPU frames on every
+    scheme, with the shading kernels' switch on and off, read none."""
+    import ast
+    import pathlib
+
+    import flexlight_tpu_torch as port
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+
+    named = []
+    for path in sorted(pathlib.Path(port.__file__).parent.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = {id(node.body[0].value) for node in ast.walk(tree)
+                if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                     ast.AsyncFunctionDef))
+                and node.body and isinstance(node.body[0], ast.Expr)}
+        named += [f"{path.name}:{node.lineno}" for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and "FLEXLIGHT_" in node.value and id(node) not in docs]
+    assert not named, named
+
+    read = []
+
+    class Recording(type(os.environ)):
+        def __getitem__(self, key):
+            read.append(key)
+            return super().__getitem__(key)
+
+        def get(self, key, default=None):
+            read.append(key)
+            return super().get(key, default)
+
+        def __contains__(self, key):
+            read.append(key)
+            return super().__contains__(key)
+
+    env = Recording(os.environ._data, os.environ.encodekey, os.environ.decodekey,
+                    os.environ.encodevalue, os.environ.decodevalue)
+    monkeypatch.setattr(os, "environ", env)
+    monkeypatch.setattr(os, "getenv", env.get)
+    e = theater(stand_in_wood_texture(0), device="cpu")
+    cfg = Config(temporal=False, filter=False, antialiasing=None, max_reflections=2)
+    for scheme, switch in (("auto", False), ("kernel", False), ("kernel", True),
+                           ("sparse", False), ("sparse", True)):
+        PathTracer(8, 8, e.scene, e.camera, cfg, "cpu", scheme=scheme,
+                   shade_kernel=switch).render_frame()
+    assert not [k for k in read if str(k).startswith("FLEXLIGHT_")], read

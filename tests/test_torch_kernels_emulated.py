@@ -235,3 +235,85 @@ def test_dead_rays_leave_the_state_unchanged_in_the_post_kernel(lib, exact_sqrt)
     before = state.clone()
     SK._sp_post_launch(lib, 0, *args)
     assert torch.equal(state, before)
+
+
+def _shade_frame(lib, name, rng_mode, emulated: bool):
+    """One 16x16 frame of `name` (full pipeline, 4 bounces,
+    scheme="kernel", shade_kernel=True) with the plain versions, or with
+    the shading kernels from the emulated build. Returns (image, the
+    inputs of every shade / interp_shade call, recorded before the call)."""
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+    from tests.test_torch_scene_copy import build
+
+    calls = []
+
+    def recorder(kind, fn):
+        def rec(*a):
+            calls.append((kind, _clone(a)))
+            return fn(*a)
+        return rec
+
+    if emulated:
+        shade = lambda *a: HK._shade_launch(lib, 0, *a)  # noqa: E731
+        interp = lambda *a: HK._interp_shade_launch(lib, 0, *a)  # noqa: E731
+    else:
+        shade, interp = PLAIN.shade, PLAIN.interp_shade
+    kernels = PLAIN._replace(shade=recorder("shade", shade),
+                             interp_shade=recorder("interp_shade", interp))
+    import flexlight_tpu_torch as port
+
+    scene, camera = build(name, port)
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=1, max_reflections=4, rng=rng_mode)
+    tracer = PathTracer(16, 16, scene, camera, cfg, "cpu", scheme="kernel", kernels=kernels,
+                        shade_kernel=True)
+    return tracer.render_frame(), calls
+
+
+@pytest.mark.parametrize("name,kind", [("theater", "shade"), ("cornell", "interp_shade")])
+@pytest.mark.parametrize("rng_mode", ["counter", "hash"])
+def test_shade_kernels_are_bit_exact(lib, exact_sqrt, host_sin, name, kind, rng_mode):
+    """Every shading call of a frame (theater: textured, so shade; cornell:
+    1x1 atlases, so interp_shade), emulated kernel against plain version on
+    the same state and request blocks: identical. Then the frames are."""
+    from flexlight_tpu_torch.ops import shade as H
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+
+    img, calls = _shade_frame(lib, name, rng_mode, emulated=False)
+    assert [k for k, _ in calls] == [kind] * 4
+    launch = HK._shade_launch if kind == "shade" else HK._interp_shade_launch
+    plain = H.shade_plain if kind == "shade" else H.interp_shade_plain
+    for _, args in calls:
+        got = launch(lib, 0, *_clone(args))
+        ref = plain(*_clone(args))
+        assert (got[0][H.SURF] > 0).any()
+        for block, a, b in zip(("state", "request"), got, ref):
+            bad = (a != b).any(dim=1).nonzero().flatten().tolist()
+            assert not bad, (kind, args[-2], block, bad)
+    img_k, _ = _shade_frame(lib, name, rng_mode, emulated=True)
+    assert img.max() > 0
+    np.testing.assert_array_equal(img_k, img)
+
+
+def test_dead_rays_are_left_alone_by_the_shade_kernels(lib, exact_sqrt):
+    """shade on rays with m = 0 writes nothing; interp_shade on rays that
+    are not alive writes m = 0 and nothing else."""
+    from flexlight_tpu_torch.ops import shade as H
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+
+    for name, kind in (("theater", "shade"), ("cornell", "interp_shade")):
+        _, calls = _shade_frame(lib, name, "counter", emulated=False)
+        state, req = _clone(calls[1][1][:2])
+        args = (state, req) + calls[1][1][2:]
+        if kind == "shade":
+            state[H.SURF] = 0.0
+        else:
+            state[F.ALIVE] = 0.0
+            state[H.SURF] = 1.0
+        before, req_before = state.clone(), req.clone()
+        launch = HK._shade_launch if kind == "shade" else HK._interp_shade_launch
+        launch(lib, 0, *args)
+        if kind == "interp_shade":
+            assert not state[H.SURF].any()
+            before[H.SURF] = 0.0
+        assert torch.equal(state, before) and torch.equal(req, req_before), kind

@@ -2,9 +2,10 @@
 
     python3 tools/profile_frame.py [--scene theater|dragon]
                                    [--scheme auto|fused_split|kernel|sparse]
+                                   [--shade-kernel]
                                    [--device cuda:0] [--seed 0] [--timed 8] [--profiled 3]
                                    [--width 1920] [--height 1080]
-                                   [--out build/profile_frame_<scene>_<scheme>.json]
+                                   [--out build/profile_frame_<scene>_<scheme>[_shade].json]
 
 Renders --scene with the headline config (temporal 4, 3+3+final filter,
 FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
@@ -12,6 +13,8 @@ FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
 "auto" resolves to "fused_split") or the dragon stand-in (its seeded OBJ
 files written under build/objects/; 44,890 triangles, "auto" resolves to
 "sparse"; the monkey head's look-at animation runs before every frame).
+--shade-kernel turns the renderer's shade_kernel switch on (kernel and
+sparse schemes: the shading kernels of ops.shade).
 It reports:
 
   * frame ms: host wall time of render_frame() (which returns the frame on
@@ -50,6 +53,7 @@ PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
          ("fl_sparse_flags", "sparse tile flags"), ("fl_sparse_key", "sparse nearest2 key"),
          ("fl_sparse_closest", "sparse closest hit"), ("fl_sparse_any", "sparse any hit"),
          ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
+         ("fl_shade", "shade"), ("fl_interp_shade", "interp_shade"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
          ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
 OTHER = ("torch ops (shading or texture glue, worklist sort and compaction, temporal, "
@@ -80,6 +84,7 @@ def main() -> int:
     ap.add_argument("--scene", default="theater", choices=("theater", "dragon"))
     ap.add_argument("--scheme", default="auto",
                     choices=("auto", "fused_split", "kernel", "sparse"))
+    ap.add_argument("--shade-kernel", action="store_true")
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed", type=int, default=8)
@@ -88,8 +93,9 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    tag = "_shade" if args.shade_kernel else ""
     out = args.out or os.path.join(ROOT, "build",
-                                   f"profile_frame_{args.scene}_{args.scheme}.json")
+                                   f"profile_frame_{args.scene}_{args.scheme}{tag}.json")
 
     import torch
     from torch.autograd import DeviceType
@@ -117,7 +123,7 @@ def main() -> int:
     else:
         e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
     tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
-                        scheme=args.scheme)
+                        scheme=args.scheme, shade_kernel=args.shade_kernel)
     scheme = tracer.resolved_scheme()
     frames = 0
 
@@ -165,7 +171,8 @@ def main() -> int:
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda t: -t[1])[:8]
 
-    print(f"[frame] {args.scene} {args.width}x{args.height}, scheme {scheme}: render_frame() ms "
+    print(f"[frame] {args.scene} {args.width}x{args.height}, scheme {scheme}, shade_kernel "
+          f"{args.shade_kernel}: render_frame() ms "
           f"{[round(x, 1) for x in frame_ms]}, median {frame_med:.1f}", flush=True)
     print("| Part | Device ms per frame | Kernels per frame |", flush=True)
     print("| --- | --- | --- |", flush=True)
@@ -182,6 +189,7 @@ def main() -> int:
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"device": smi, "scene": args.scene, "scheme": scheme,
+                   "shade_kernel": args.shade_kernel,
                    "width": args.width, "height": args.height,
                    "frame_ms": frame_ms, "frame_ms_median": frame_med,
                    "device_ms_per_frame": parts, "kernels_per_frame_by_part": counts,
