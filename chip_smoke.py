@@ -20,12 +20,13 @@ Phases, one line each (any failure exits non-zero):
      closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
      frame with shade_kernel=True: its primary cast, its first shadow cast
      and its first bounce cast, and the interp_shade kernel on the state of
-     each of its 5 bounces. Each kernel takes the same operations in the
-     same order as its plain version, so their outputs must be identical;
-     prints the number of differing values, the max abs difference, the
-     median CUDA-event time of both sides (the slow plain worklist casts:
-     one timed call) and the least time the card could take (bound). The
-     bound of the TPU kernel not ported yet follows at the end.
+     each of its 5 bounces; and the whole-frame kernel of scheme="fused"
+     (fused_frame) on wave's 1080p camera rays at 2 spp, 5 bounces. Each
+     kernel takes the same operations in the same order as its plain
+     version, so their outputs must be identical; prints the number of
+     differing values, the max abs difference, the median CUDA-event time
+     of both sides (the slow plain worklist casts: one timed call) and the
+     least time the card could take (bound).
   4. main path: theater at 1080p (stand-in wood texture from --seed), full
      pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
      through FlexLight(...).renderer = "pathtracer" and render_frame(),
@@ -55,6 +56,15 @@ Phases, one line each (any failure exits non-zero):
      functions, so those frames serve); (b) theater at 1080p on
      scheme="kernel", 2 frames, which must launch shade 5x per frame
      (interp_shade never), against their plain frames.
+  8. the fused path: wave (scenes.wave: 4 pillars on a plane, 50
+     triangles, 1 light, a 2x2048 PBR atlas) at 1080p, full pipeline,
+     through FlexLight(...).renderer = "pathtracer" with the renderer's
+     scheme set to "fused" and render_frame(), its animation applied
+     before every frame; every frame must launch fused_frame once and no
+     PRE, POST, traversal or shading kernel, and match its plain frame as
+     above; one frame's MRT on scheme="fused" must be identical to the
+     same frame's on scheme="fused_split" (both through the kernels), and
+     the CUDA-event time of both MRT passes is printed.
 Then one JSON line per the kernels, the card's name and power limit, and a
 last line {"ok": true, "device": {...}}.
 """
@@ -89,19 +99,28 @@ OPS_ANY_TEST = 57
 OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
 OPS_BOUNCE_PRE = 205     # trace.cuh fl_bounce_pre: 55, and 50 per vertex
 # trace.cuh fl_bounce_shade outside the light loop and the noise: the frame
-# (ray_dir 14, sign 7, flip 3, noise phase 1, random sphere 25, brdf 9,
+# (ray_dir 14, sign 8, flip 3, noise phase 1, random sphere 25, brdf 9,
 # rough normal 20, half vector 14, v.h 6, (1-v.h)^5 4, Fresnel 15, decision
 # 2), the id packing (2 atan2 phases 8, 2 nibble packs 10, 3 sums), the
 # filter tests 2, the reservoir normals 6 and its epilogue (light dir 11,
 # tests 8, offset target 6, length 6); the scale of the ids adds one
 # multiply per bounce index
-OPS_SHADE = 180
+OPS_SHADE = 181
 OPS_FIRST_LENGTH = 21    # and, at bounce 1, the first ray length
-OPS_APPLY = 64           # fused.cu bounce_apply with next_ray_dir
+OPS_APPLY = 65           # trace.cuh fl_bounce_apply with next_ray_dir
 OPS_LIGHT = 148          # one light of the reservoir loop: position, fl_forward_trace (130),
                          # weight, selection; a light that is on adds its 5 sums
 OPS_LIGHT_ON = 5
 OPS_TEX_SELECT = 3       # shade.cu: interp_shade's three texture-number tests
+# trace.cuh fl_fetch_tex: the miss test alone where the texture number is
+# -1; else also the height factor 1, the texture number's remainder 4
+# (fmod and 3 compares), the coordinates 7, and per pixel axis a remainder
+# 4 with its scale, floor and truncation 3; a u8 table adds 3 byte scales
+OPS_TEX_MISS = 1
+OPS_TEX_FETCH = 26
+OPS_TEX_U8 = 3
+OPS_FRAME_SAMPLE = 6     # fused.cu FRAME per ray and sample: the ambient epilogue
+OPS_FRAME_RAY = 3        # and per ray the scale by 1 / spp (each later sample adds 3 sums)
 OPS_NOISE = {"hash": (5, 8), "counter": (0, 2)}  # one noise call: (per call, per output)
 # The words a live ray reads and writes in the shading kernels (shade.cu):
 # shade reads 19 carry words, the surface's normal and offset (4), the
@@ -128,11 +147,6 @@ OPS_FLAG = OPS_SLAB + 4
 OPS_KEY_BOX = OPS_SLAB + 4
 OPS_INV_DIR = 6
 OPS_KEY_RAY = OPS_INV_DIR + 4
-# The TPU kernel not ported yet (PERF.md's table, row 10): launch site, and
-# the 4-byte words per ray that it passes in and out (the direct frame's 14
-# channels and 7 per bounce). Its bound is these bytes at the frame's rays
-# over the memory rate; the scene-side tables, read once, are left out.
-UNPORTED = ((10, "ops/fused.py:392", 8, None),)   # camera ray block; record channels
 
 
 def fail(msg: str) -> None:
@@ -230,7 +244,7 @@ def main() -> int:
 
 
 def drive(args, dev, smi: str) -> int:
-    """Phases 2-5 on `dev`."""
+    """Phases 2-8 on `dev`."""
     import numpy as np
     import torch
 
@@ -240,10 +254,12 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
+        from flexlight_tpu_torch.ops.buffers import build_scene_buffers
         from flexlight_tpu_torch.ops.intersect_sparse_kernel import (EXIT_ABS, EXIT_REL,
                                                                      TRI_TILE)
+        from flexlight_tpu_torch.ops.pathtrace import render_mrt, sample_cos
         from flexlight_tpu_torch.post.filter_kernel import byte_i
-        from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
+        from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
     except ImportError as exc:
         fail(f"the flexlight_tpu_torch package is not importable beside this script: {exc}")
     t_start = time.perf_counter()
@@ -280,6 +296,25 @@ def drive(args, dev, smi: str) -> int:
         e.canvas = (width, height)
         e.config = config
         return e, animate
+
+    def wave_engine(width, height):
+        """wave on a FlexLight of width x height; (engine, animate)."""
+        reset_global_registry()
+        e, animate = wave(device=dev)
+        e.canvas = (width, height)
+        e.config = config
+        return e, animate
+
+    def fused_frame_args(buffers, camera, cfg):
+        """fused_frame's inputs for camera's w x h frame over `buffers`
+        (seed 0), as render_mrt(scheme="fused") passes them."""
+        cam, dirs, ndc, w4, ids, mat = F.frame_inputs(buffers, w, h, camera.position,
+                                                      camera.view_matrix(w, h))
+        cos = torch.tensor([sample_cos(s) for s in range(cfg.samples_per_ray)],
+                           dtype=torch.float32, device=dev)
+        return (dirs, ndc, w4, ids, mat, buffers.lights.contiguous(), buffers.ambient,
+                buffers.albedo_tab, buffers.pbr_tab, buffers.tpo_tab, cam,
+                torch.tensor(0.0, device=dev), cos, cfg)
 
     sparse_names = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")
     in_place = ("sp_pre", "sp_post", "shade", "interp_shade")
@@ -358,7 +393,8 @@ def drive(args, dev, smi: str) -> int:
     PathTracer(w, h, e.scene, e.camera, config.replace(samples_per_ray=2), dev,
                kernels=PLAIN._replace(sp_pre=sp_pre_resample)).render_frame()
     del tracer
-    missing = [n for n in KernelSet._fields if n not in captured and n not in sparse_names]
+    missing = [n for n in KernelSet._fields
+               if n not in captured and n not in sparse_names + ("fused_frame",)]
     if missing or len(resample) != 1:
         fail(f"the frames did not reach {missing or 'a resampling PRE'}")
     calls = {n: len(captured[n]) for n in in_place}
@@ -518,6 +554,46 @@ def drive(args, dev, smi: str) -> int:
             sums = [sums[0] + k_ms, sums[1] + p_ms, sums[2] + bnd[0]]
         frame_sums(name, sums)
         del captured[name]
+    torch.cuda.empty_cache()
+
+    # the whole-frame kernel (scheme="fused") on wave's camera rays, 2 spp
+    we, _ = wave_engine(w, h)
+    wb = build_scene_buffers(we.scene, dev)
+    cfg2 = config.replace(samples_per_ray=2)
+    fargs = fused_frame_args(wb, we.camera, cfg2)
+    tabs = fargs[7:10]
+    # the work this frame's data needs: its plain version with POST's inputs
+    # counted (live rays per bounce, fetches that read an atlas)
+    bounce_live, fetched = [], [0, 0]
+
+    def counting_post(state, *rest):
+        m = state[F.SURF] > 0
+        bounce_live.append((rest[-2], int(m.sum())))
+        for k, tab in enumerate(tabs):
+            hits = int((state[F.TEXIN + 2 + k][m] != -1.0).sum())
+            fetched[0] += hits
+            fetched[1] += hits if tab.texels.dtype == torch.uint8 else 0
+        return F.sp_post_plain(state, *rest)
+
+    F.split_frame(*fargs[:7], wb, *fargs[10:], F.sp_pre_plain, counting_post)
+    nf, tpf = fargs[0].shape[1], fargs[2].shape[1]
+    n_lights, lights_on = wb.lights.shape[0], int((wb.lights[:, 1, 0] > 0).sum())
+    table_bytes = sum(t.numel() * t.element_size() for tab in tabs for t in tab)
+    nbytes = (f32 * (5 + F.FR_C) * nf + table_bytes
+              + sum(t.numel() * t.element_size() for t in fargs[2:7] + fargs[10:13]))
+    ops = (nf * (OPS_MAKE_RAY + tpf * OPS_CLOSEST_TEST + OPS_FRAME_RAY)
+           + cfg2.samples_per_ray * nf * (OPS_BOUNCE_PRE + OPS_FRAME_SAMPLE)
+           + (cfg2.samples_per_ray - 1) * 3 * nf
+           + fetched[0] * OPS_TEX_FETCH + fetched[1] * OPS_TEX_U8)
+    for i, live in bounce_live:
+        nxt = i + 1 < cfg2.max_reflections
+        ops += live * (3 * OPS_TEX_MISS + shade_ops(i, n_lights, lights_on) + OPS_MAKE_RAY
+                       + OPS_ANY_TEST + OPS_APPLY
+                       + (OPS_MAKE_RAY + tpf * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE if nxt else 0))
+    check("fused_frame", f"wave, {nf} rays, 2 spp x {cfg2.max_reflections} bounces, "
+          f"{sum(x for _, x in bounce_live)} live ray-bounces, {fetched[0]} atlas fetches",
+          fargs, bound(nbytes, ops))
+    del fargs, wb, we
     torch.cuda.empty_cache()
 
     # the traversal (scheme="kernel")
@@ -741,7 +817,7 @@ def drive(args, dev, smi: str) -> int:
     e.renderer.scheme = "kernel"
     frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer, n2)
     idle = [name for name, c in kernel_launches.items()
-            if c == 0 and name not in in_place + sparse_names]
+            if c == 0 and name not in in_place + sparse_names + ("fused_frame",)]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
@@ -811,6 +887,52 @@ def drive(args, dev, smi: str) -> int:
     torch.cuda.empty_cache()
     print(f"[phase] shade-kernel paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 8. the fused path: wave on scheme="fused" ----------------------------
+    t0 = time.perf_counter()
+    e, step = wave_engine(w, h)
+    plain = PathTracer(w, h, e.scene, e.camera, config, dev, scheme="fused", kernels=PLAIN)
+    plain_frames = []
+    for i in range(args.frames):
+        step(i)
+        plain_frames.append(torch.from_numpy(plain.render_frame()))
+    del plain
+    e, animate = wave_engine(w, h)
+    e.renderer = "pathtracer"
+    e.renderer.scheme = "fused"
+    print(f"[fused-path] wave {w}x{h}: the renderer's scheme is "
+          f"{e.renderer.resolved_scheme()!r}", flush=True)
+    frames, fused_launches = drive_frames("fused-path", e.renderer, args.frames, step=animate)
+    expect_launches("wave on scheme='fused'", fused_launches, args.frames,
+                    {"fused_frame": 1, "sp_pre": 0, "sp_post": 0, "closest_hit": 0,
+                     "any_hit": 0, "shade": 0, "interp_shade": 0})
+    idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
+            if fused_launches[name] == 0]
+    if idle:
+        fail(f"kernels not launched on the fused path: {idle}")
+    check_frames("fused-path", frames, plain_frames, (h, w, 3))
+    del frames, plain_frames
+    # the last frame's scene on both fused schemes, through the kernels: the
+    # same operations, so the same MRT
+    wb = e.renderer._buffers
+    mrt_args = (wb, w, h, e.camera.position, e.camera.view_matrix(w, h), config, 0.0)
+    count, err = differences(tuple(render_mrt(*mrt_args, scheme="fused")),
+                             tuple(render_mrt(*mrt_args, scheme="fused_split")), False)
+    print(f"[fused-path] one frame's MRT, scheme 'fused' against 'fused_split' (kernels): "
+          f"tolerance: identical; {count} values differ, max abs {err:.3g} -> "
+          f"{'ok' if count == 0 else 'FAIL'}", flush=True)
+    if count:
+        fail("scheme='fused' and scheme='fused_split' render different MRTs")
+    fused_ms = cuda_ms(lambda: render_mrt(*mrt_args, scheme="fused"))
+    split_ms = cuda_ms(lambda: render_mrt(*mrt_args, scheme="fused_split"))
+    fargs = fused_frame_args(wb, e.camera, config)
+    kernel_ms = cuda_ms(lambda: KERNELS.fused_frame(*fargs))
+    print(f"[fused-path] device time of the MRT pass (CUDA events, median of 10): scheme "
+          f"'fused' {fused_ms:.3f} ms (its fused_frame launch alone, 1 spp: {kernel_ms:.3f} ms), "
+          f"scheme 'fused_split' {split_ms:.3f} ms", flush=True)
+    del e, fargs, wb, mrt_args
+    torch.cuda.empty_cache()
+    print(f"[phase] fused path: {time.perf_counter() - t0:.1f} s", flush=True)
+
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
     if loaded:
@@ -822,17 +944,12 @@ def drive(args, dev, smi: str) -> int:
         launches[name] = sparse_launches[name]
     launches["interp_shade"] = step_launches["interp_shade"]
     launches["shade"] = shade_launches["shade"]
+    launches["fused_frame"] = fused_launches["fused_frame"]
     kernels = []
     for name, k in zip(KernelSet._fields, KERNELS):
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
                         **results[name]})
-    for row, site, w_in, w_out in UNPORTED:
-        w_out = 14 + 7 * config.max_reflections if w_out is None else w_out
-        nbytes = f32 * (w_in + w_out) * w * h
-        print(f"[bound] row {row}, flexlight_tpu/{site} (not ported): {w_in} + {w_out} words "
-              f"per ray x {w * h} rays, {nbytes / 1e6:.1f} MB, bound {bound(nbytes, 0)[0]:.4f} ms "
-              f"(bytes)", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -62,6 +62,12 @@ SIGNATURES = {
     # state, tex, ndc, w4, tp, ids, mat, lights, n_lights, cam, random_seed,
     # cos_sample_n, bounce, do_next, counter, min_importance, n, stream
     "fl_sp_post": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _F, _I, _P],
+    # out, dirs, ndc, w4, tp, ids, mat, lights, n_lights, ambient, then per
+    # atlas (albedo, pbr, tpo) texels, u8, tile_info, n_slots, meta; cam,
+    # seed, cos_samples, spp, inv_spp, bounces, counter, min_importance, n,
+    # stream
+    "fl_fused_frame": [_P] * 4 + [_I, _P, _P, _P, _I, _P] + [_P, _I, _P, _I, _P] * 3
+                      + [_P] * 3 + [_I, _F, _I, _I, _F, _I, _P],
     # amin, amax, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, rt, out, stream
     "fl_sparse_flags": [_P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
     # bmin, bmax, nb, ox, oy, oz, dx, dy, dz, max_len, n, key, stream

@@ -12,8 +12,9 @@
 //   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]),
 //                       which the sparse worklist kernels (sparse.cu) share
 //   bounce stages       ops/pathtrace.py bounce_pre, bounce_shade (with
-//                       reservoir_select), over the carry rows of a state
-//                       block (ops/fused.py's layout)
+//                       reservoir_select), bounce_apply, over the carry
+//                       rows of a state block (ops/fused.py's layout)
+//   the atlas fetch     ops/buffers.py fetch_tex_val_table
 // Constants are the float32 roundings of the Python doubles that torch
 // casts them from, written as (float)<double>.
 #pragma once
@@ -55,9 +56,19 @@ __device__ __forceinline__ float fl_minimum(float a, float b) {
     return a < b ? a : b;
 }
 
-// torch.sign: +0 for +-0 and NaN
+#define FL_FLT_MIN 1.17549435e-38f  // the least normal float
+
+// ops/vec3.py sign (jnp.sign on XLA's CPU): the signed zero of a for
+// |a| < FL_FLT_MIN (+-0 and denormals), NaN for NaN, else +-1
 __device__ __forceinline__ float fl_sign(float a) {
-    return (float)((0.0f < a) - (a < 0.0f));
+    if (fabsf(a) < FL_FLT_MIN) return a * 0.0f;
+    if (a != a) return a;
+    return a > 0.0f ? 1.0f : -1.0f;
+}
+
+// ops/vec3.py clamp_min0 (jnp.maximum(a, 0)): NaN stays NaN, -0 becomes +0
+__device__ __forceinline__ float fl_clamp_min0(float a) {
+    return fl_clamp_min(a, 0.0f) + 0.0f;
 }
 
 // ---- vec3 (ops/vec3.py) ------------------------------------------------
@@ -647,4 +658,90 @@ __device__ __forceinline__ fl_shade_req fl_bounce_shade(
     q.offset_target = fl_add3(c.ray_origin, fl_scale3(n_smooth, geometry_offset));
     q.max_len = fl_norm3(res_dir);
     return q;
+}
+
+// bounce_apply (glsl:448-461, 577-589) of one live ray after its shadow
+// cast: reservoir_finish, radiance and next_ray_dir (reflect, or
+// Fresnel-chance refract, roughness-mixed).
+__device__ __forceinline__ void fl_bounce_apply(fl_carry& c, const fl_shade_req& q, float emis,
+                                                fl_v3 tpo, bool shadowed) {
+    bool in_shadow = !q.show_color && (q.show_shadow || shadowed);
+    float id_w = (float)((q.res_num % 128) * 2) * FL_INV_255;
+    id_w = id_w + (in_shadow ? FL_INV_255 : 0.0f);
+    fl_v3 e3 = fl_make3(emis, emis, emis);
+    fl_v3 lc = (q.show_color || !in_shadow) ? fl_add3(q.local_color, e3) : e3;
+    if (q.write_id_w) c.render_id[3] = id_w;
+    c.final_color = fl_add3(c.final_color, fl_mul3(lc, c.importancy));
+    float n_dot_i = fl_dot3(q.smooth_normal, q.ray_dir);
+    fl_v3 reflected = fl_sub3(q.ray_dir, fl_scale3(q.smooth_normal, 2.0f * n_dot_i));
+    float inv_eta = 1.0f / tpo.z;
+    float eta = inv_eta + (tpo.z - inv_eta) * fl_clamp_min0(q.sign_dir);
+    float k = 1.0f - eta * eta * (1.0f - n_dot_i * n_dot_i);
+    float refr_coef = eta * n_dot_i + sqrtf(fl_clamp_min(k, 0.0f));
+    fl_v3 refracted = k < 0.0f ? fl_make3(0.0f, 0.0f, 0.0f)
+                               : fl_sub3(fl_scale3(q.ray_dir, eta),
+                                         fl_scale3(q.smooth_normal, refr_coef));
+    fl_v3 base = q.is_solid ? reflected : refracted;
+    c.ray_dir = fl_normalize3(fl_mix3(base, q.random_sphere, q.roughness_brdf));
+}
+
+// ---- the atlas fetch (ops/buffers.py fetch_tex_val_table) ----------------
+
+// One compact atlas table (ops/buffers.py AtlasTable): texels [K, 3], u8
+// (each byte times f32(1/255)) or f32; tile_info [n_slots, 3] int32
+// (offset, stored width, stored height); meta [5] int32 (std_w, std_h,
+// tiles per row, virtual height, virtual width).
+struct fl_atlas {
+    const void* texels;
+    int u8;
+    const int* tile_info;
+    int n_slots;
+    const int* meta;
+};
+
+// torch.div(a, b, rounding_mode="floor") on int32
+__device__ __forceinline__ int fl_floor_div(int a, int b) {
+    int q = a / b;
+    return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int fl_clamp_int(int x, int lo, int hi) {
+    x = x < lo ? lo : x;
+    return x > hi ? hi : x;
+}
+
+// NEAREST sampling with REPEAT wrap through the compact table, the inline
+// value `dflt` where tex_num is -1 (pathtracer_fragment.glsl:108-117).
+// torch.remainder is fl_mod (fmod, then the divisor added where the signs
+// differ); float -> int32 is the truncating conversion torch takes.
+__device__ __forceinline__ fl_v3 fl_fetch_tex(const fl_atlas& a, float u, float v,
+                                              float tex_num, fl_v3 dflt) {
+    if (tex_num == -1.0f) return dflt;
+    int std_w = a.meta[0], std_h = a.meta[1], tpr = a.meta[2];
+    int virt_h = a.meta[3], virt_w = a.meta[4];
+    float hf = (float)virt_h;
+    float wf = (float)virt_w;
+    float tw = (float)tpr;
+    float height_factor = wf / hf;
+    float cx = (u + fl_mod(tex_num, tw)) / tw;
+    float cy = (v + floorf(tex_num / tw)) * height_factor / tw;
+    int px = (int)floorf(fl_mod(cx, 1.0f) * wf);
+    px = fl_clamp_int(px, 0, virt_w - 1);
+    int py = (int)floorf(fl_mod(cy, 1.0f) * hf);
+    py = fl_clamp_int(py, 0, virt_h - 1);
+    int col = fl_floor_div(px, std_w);
+    int row = fl_floor_div(py, std_h);
+    int slot = fl_clamp_int(row * tpr + col, 0, a.n_slots - 1);
+    const int* info = a.tile_info + 3 * (size_t)slot;
+    int sw = info[1], sh = info[2];
+    int sx = fl_floor_div((px - col * std_w) * sw, std_w);
+    int sy = fl_floor_div((py - row * std_h) * sh, std_h);
+    size_t idx = 3 * (size_t)(info[0] + sy * sw + sx);
+    if (a.u8) {
+        const uint8_t* t = (const uint8_t*)a.texels + idx;
+        return fl_make3((float)t[0] * FL_INV_255, (float)t[1] * FL_INV_255,
+                        (float)t[2] * FL_INV_255);
+    }
+    const float* t = (const float*)a.texels + idx;
+    return fl_make3(t[0], t[1], t[2]);
 }

@@ -9,7 +9,8 @@ The hand-written kernels of the frame come in a `KernelSet`: `KERNELS`
 (the default) holds the kernel wrappers, `PLAIN` their plain PyTorch
 versions, which run the same frame without any kernel of this package.
 A frame launches the traversal kernels (scheme="kernel"), the fused
-PRE / POST kernels (scheme="fused_split") or the worklist kernels of large
+PRE / POST kernels (scheme="fused_split"), the whole-frame kernel
+(scheme="fused", never picked by "auto") or the worklist kernels of large
 scenes (scheme="sparse": tile flags, nearest2 sort key, closest hit, any
 hit), and the filter and FXAA kernels either way. With the renderer's
 `shade_kernel` switch on (off by default, as in flexlight_tpu), the
@@ -28,7 +29,7 @@ import torch
 from ..config import Config
 from ..ops.buffers import build_scene_buffers
 from ..ops.fused import fused_split_eligible
-from ..ops.fused_kernel import sp_post, sp_pre
+from ..ops.fused_kernel import fused_frame, sp_post, sp_pre
 from ..ops.intersect_kernel import any_hit, closest_hit
 from ..ops.intersect_sparse_kernel import (sparse_any, sparse_closest, sparse_flags,
                                            sparse_key)
@@ -59,11 +60,12 @@ class KernelSet(NamedTuple):
     sparse_any: Callable
     shade: Callable
     interp_shade: Callable
+    fused_frame: Callable
 
 
 KERNELS = KernelSet(closest_hit, any_hit, first_blur, second_blur, final_blur,
                     fxaa_cuda, sp_pre, sp_post, sparse_flags, sparse_key, sparse_closest,
-                    sparse_any, shade, interp_shade)
+                    sparse_any, shade, interp_shade, fused_frame)
 PLAIN = KernelSet(*(k.plain for k in KERNELS))
 
 
@@ -232,17 +234,18 @@ class PathTracer:
         chip (models/pathtracer.py:344-371) on every device: below
         SPARSE_MIN_TRIS triangles "fused_split" for scenes within its caps
         (<= 1024 triangles, <= 256 lights), else "kernel"; "sparse" from
-        SPARSE_MIN_TRIS on."""
+        SPARSE_MIN_TRIS on. As in flexlight_tpu, "auto" never picks
+        "fused": a caller asks for it."""
         if self.scheme == "auto":
             if self._buffers is None:
                 self.update_scene()
             if self._buffers.id_buffer.shape[0] >= self.SPARSE_MIN_TRIS:
                 return "sparse"
             return "fused_split" if fused_split_eligible(self._buffers) else "kernel"
-        if self.scheme in ("kernel", "fused_split", "sparse"):
+        if self.scheme in ("kernel", "fused_split", "fused", "sparse"):
             return self.scheme
         raise NotImplementedError(
-            f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 2)")
+            f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 1)")
 
     def update_primary_light_sources(self):
         if self._buffers is None:

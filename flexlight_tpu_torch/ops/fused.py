@@ -1,7 +1,8 @@
-"""The per-bounce split pipeline, scheme="fused_split"
-(flexlight_tpu/ops/fused.py:513-1341): kernels 4 and 5 of the port.
+"""The fused schemes of small scenes (flexlight_tpu/ops/fused.py):
+scheme="fused_split" (:513-1341), kernels 4 and 5 of the port, and
+scheme="fused" (:104-466), kernel 10.
 
-One frame sample is
+One fused_split frame sample is
 
     PRE       primary closest hit (relaxed -BIAS edge) + bounce_carry_init
               + bounce_pre(0)                                  (sp_pre)
@@ -20,6 +21,14 @@ exists on the card, so the id packing runs inside POST and needs no
 per-bounce records. After the last bounce POST skips the next closest
 hit and bounce_pre, whose results no render target reads.
 
+scheme="fused" runs the same frame, every sample and bounce and the
+atlas fetches, in ONE kernel launch (fused_frame) that keeps each ray's
+state in registers and writes only the [FR_C, N] block the MRT needs.
+Its plain version, `fused_frame_plain`, is the fused_split frame with the
+plain versions of PRE and POST (`split_frame`), so the two schemes agree
+bit for bit. Like flexlight_tpu it serves only scenes within
+`fused_eligible`'s caps, and the auto rule never picks it.
+
 `sp_pre_plain` / `sp_post_plain` are the kernels' plain versions, built
 from the stage functions of ops.pathtrace; both update the state in
 place, as the kernels do (each ray reads and writes only its own column).
@@ -32,18 +41,19 @@ from typing import NamedTuple
 import torch
 
 from . import vec3 as v3
-from .buffers import SceneBuffers
+from .buffers import AtlasTable, SceneBuffers
 from .geometry import world_geometry
 from .intersect import BIAS, POW32
 from .intersect_kernel import any_hit_plain, build_w4, closest_hit_plain
-from .pathtrace import (BounceCarry, BounceSurface, assemble_mrt, bounce_apply,
+from .pathtrace import (MRT, BounceCarry, BounceSurface, assemble_mrt, bounce_apply,
                         bounce_carry_init, bounce_commit, bounce_pre, bounce_shade,
                         bounce_tex, build_material_table, camera_rays, inverse_view,
                         sample_cos)
 from .rng import f32
 
-MAX_TRIS = 1024    # flexlight_tpu/ops/fused.py:72, the split pipeline's cap
+MAX_TRIS = 1024    # flexlight_tpu/ops/fused.py:72, the fused schemes' cap
 MAX_LIGHTS = 256   # flexlight_tpu/ops/fused.py:89
+MAX_TEXELS = 4096  # flexlight_tpu/ops/fused.py:73, scheme="fused"'s atlas cap
 
 # State block rows. The carry (BounceCarry):
 ALIVE, TRI, HS, HU, HV = 0, 1, 2, 3, 4
@@ -66,6 +76,13 @@ TEXIN = 41
 SP_C = 55
 # bounce_tex -> POST: albedo (3), rough, metal, emis, tpo (3)
 TEX_C = 9
+# The frame block (split_frame, the fused_frame kernel): final color (3),
+# original color (3), render_id (4), glass, originalRMEx, originalTPOx,
+# firstRayLength, the primary hit (s, u, v, triangle slot or -1)
+FR_COLOR, FR_ORIGINAL_COLOR, FR_RENDER_ID = 0, 3, 6
+FR_GLASS, FR_RME_X, FR_TPO_X, FR_FIRST_RAY_LENGTH = 10, 11, 12, 13
+FR_PPART = 14
+FR_C = 18
 
 
 class _Lights(NamedTuple):
@@ -73,11 +90,28 @@ class _Lights(NamedTuple):
     lights: torch.Tensor
 
 
+class _Atlases(NamedTuple):
+    """The part of SceneBuffers that bounce_tex reads."""
+    albedo_tab: AtlasTable
+    pbr_tab: AtlasTable
+    tpo_tab: AtlasTable
+
+
 def fused_split_eligible(buffers: SceneBuffers) -> bool:
     """Triangle and light counts within the split pipeline's caps
     (flexlight_tpu/ops/fused.py:516-521); atlases of any size."""
     return (buffers.id_buffer.shape[0] <= MAX_TRIS
             and buffers.lights.shape[0] <= MAX_LIGHTS)
+
+
+def fused_eligible(buffers: SceneBuffers) -> bool:
+    """flexlight_tpu's rule for scheme="fused" (ops/fused.py:104-109):
+    <= 1024 triangles, <= 256 lights, and every atlas of <= 4096
+    texels."""
+    atlases = (buffers.albedo_atlas, buffers.pbr_atlas, buffers.tpo_atlas)
+    return (buffers.id_buffer.shape[0] <= MAX_TRIS
+            and buffers.lights.shape[0] <= MAX_LIGHTS
+            and all(a.shape[0] * a.shape[1] <= MAX_TEXELS for a in atlases))
 
 
 def carry_from_state(st: torch.Tensor) -> BounceCarry:
@@ -192,9 +226,69 @@ def sp_post_plain(state, tex, ndc, w4, ids, mat, lights, cam, random_seed: float
     return state
 
 
+def split_frame(dirs, ndc, w4, ids, mat, lights, ambient, atlases, cam, seed, cos_samples,
+                config, pre, post):
+    """The samples of one frame through `pre`, bounce_tex and `post`
+    around one state block, the ambient epilogue and the sample sum
+    (light_trace's order): the [FR_C, N] frame block. `atlases` has the
+    three AtlasTables, `cos_samples[s]` is sample s's noise phase."""
+    n = dirs.shape[1]
+    state = torch.empty((SP_C, n), dtype=torch.float32, device=dirs.device)
+    total = None
+    for s in range(config.samples_per_ray):
+        state = pre(state, dirs, w4, ids, mat, cam, s > 0, config)
+        for i in range(config.max_reflections):
+            tex = tex_block(atlases, state)
+            state = post(state, tex, ndc, w4, ids, mat, lights, cam, seed, cos_samples[s], i,
+                         config)
+        # light_trace's epilogue (glsl:595-597): ambient by importancy
+        color = tuple(state[FINAL_COLOR + c] + state[IMPORTANCY + c] * ambient[c]
+                      for c in range(3))
+        total = color if total is None else v3.add3(total, color)
+    final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
+    return torch.stack([*final_color, *state[ORIGINAL_COLOR:ORIGINAL_COLOR + 3],
+                        *state[RENDER_ID:RENDER_ID + 4], state[GLASS], state[RME_X],
+                        state[TPO_X], state[FIRST_RAY_LENGTH], *state[PPART:PPART + 4]])
+
+
+def fused_frame_plain(dirs, ndc, w4, ids, mat, lights, ambient, albedo_tab, pbr_tab, tpo_tab,
+                      cam, seed, cos_samples, config):
+    """Kernel 10's plain version (flexlight_tpu/ops/fused.py:175): the
+    frame block [FR_C, N] of the camera rays (origin `cam` [3], directions
+    `dirs` [3, N], pixel NDC `ndc` [2, N]) over the scene's W / ids /
+    material table, lights [L, 2, 3], ambient [3] and atlas tables, with
+    the 0-d `seed` and the samples' phases `cos_samples` [spp]: the
+    fused_split frame with PRE and POST's plain versions."""
+    return split_frame(dirs, ndc, w4, ids, mat, lights, ambient,
+                       _Atlases(albedo_tab, pbr_tab, tpo_tab), cam, seed, cos_samples, config,
+                       sp_pre_plain, sp_post_plain)
+
+
+def frame_inputs(buffers: SceneBuffers, width: int, height: int, camera_pos, view_matrix):
+    """(cam, dirs [3, N], ndc [2, N], w4, ids, material table) of a frame."""
+    dev = buffers.geometry.device
+    cam = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
+    inv_view = inverse_view(view_matrix).to(dev)
+    world_geom = world_geometry(buffers)
+    w4, ids = build_w4(world_geom, buffers.id_buffer)
+    mat = build_material_table(buffers, world_geom).contiguous()
+    _, direction3, ndc2 = camera_rays(width, height, cam, inv_view)
+    return cam, torch.stack(direction3), torch.stack(ndc2), w4, ids, mat
+
+
+def mrt_from_block(buffers: SceneBuffers, cam, block) -> MRT:
+    """The MRT of a frame block (assemble_mrt)."""
+    aux = (tuple(block[FR_RENDER_ID + k] for k in range(4)), block[FR_GLASS],
+           block[FR_RME_X], block[FR_TPO_X], block[FR_FIRST_RAY_LENGTH])
+    ptri = block[FR_PPART + 3].to(torch.int32)
+    return assemble_mrt(buffers, cam, (block[FR_PPART + 1], block[FR_PPART + 2], ptri),
+                        tuple(block[FR_COLOR:FR_COLOR + 3]),
+                        tuple(block[FR_ORIGINAL_COLOR:FR_ORIGINAL_COLOR + 3]), aux)
+
+
 def render_mrt_fused_split(buffers: SceneBuffers, width: int, height: int,
                            camera_pos, view_matrix, config, random_seed,
-                           kernels=None):
+                           kernels=None) -> MRT:
     """ops.pathtrace.render_mrt(scheme="fused_split"): the same MRT as
     flexlight_tpu's render_mrt_fused_split. `kernels` has `sp_pre` and
     `sp_post` (default: ops.fused_kernel's CUDA kernel wrappers)."""
@@ -205,35 +299,38 @@ def render_mrt_fused_split(buffers: SceneBuffers, width: int, height: int,
     if kernels is None:
         from . import fused_kernel as kernels
 
-    dev = buffers.geometry.device
-    cam = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
-    inv_view = inverse_view(view_matrix).to(dev)
-    seed = float(random_seed)
-    world_geom = world_geometry(buffers)
-    w4, ids = build_w4(world_geom, buffers.id_buffer)
-    mat = build_material_table(buffers, world_geom).contiguous()
-    _, direction3, ndc2 = camera_rays(width, height, cam, inv_view)
-    dirs = torch.stack(direction3)
-    ndc = torch.stack(ndc2)
-    lights = buffers.lights.contiguous()
-    n = dirs.shape[1]
-    state = torch.empty((SP_C, n), dtype=torch.float32, device=dev)
-    total = None
-    for s in range(config.samples_per_ray):
-        cos_sample_n = sample_cos(s)
-        state = kernels.sp_pre(state, dirs, w4, ids, mat, cam, s > 0, config)
-        for i in range(config.max_reflections):
-            tex = tex_block(buffers, state)
-            state = kernels.sp_post(state, tex, ndc, w4, ids, mat, lights, cam, seed,
-                                    cos_sample_n, i, config)
-        # light_trace's epilogue (glsl:595-597): ambient by importancy
-        color = tuple(state[FINAL_COLOR + c] + state[IMPORTANCY + c] * buffers.ambient[c]
-                      for c in range(3))
-        total = color if total is None else v3.add3(total, color)
-    final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
-    carry = carry_from_state(state)
-    aux = (carry.render_id, carry.glass, carry.original_rme_x, carry.original_tpo_x,
-           carry.first_ray_length)
-    ptri = state[PPART + 3].to(torch.int32)
-    return assemble_mrt(buffers, cam, (state[PPART + 1], state[PPART + 2], ptri),
-                        final_color, carry.original_color, aux)
+    cam, dirs, ndc, w4, ids, mat = frame_inputs(buffers, width, height, camera_pos,
+                                                 view_matrix)
+    cos_samples = [sample_cos(s) for s in range(config.samples_per_ray)]
+    block = split_frame(dirs, ndc, w4, ids, mat, buffers.lights.contiguous(), buffers.ambient,
+                        buffers, cam, float(random_seed), cos_samples, config,
+                        kernels.sp_pre, kernels.sp_post)
+    return mrt_from_block(buffers, cam, block)
+
+
+def render_mrt_fused(buffers: SceneBuffers, width: int, height: int, camera_pos,
+                     view_matrix, config, random_seed, kernels=None) -> MRT:
+    """ops.pathtrace.render_mrt(scheme="fused"): the whole frame in one
+    launch of `kernels.fused_frame` (default: ops.fused_kernel's CUDA
+    kernel wrapper), the same MRT as scheme="fused_split". Raises on a
+    scene outside `fused_eligible`."""
+    if not fused_eligible(buffers):
+        texels = [a.shape[0] * a.shape[1]
+                  for a in (buffers.albedo_atlas, buffers.pbr_atlas, buffers.tpo_atlas)]
+        raise ValueError(f"scene not eligible for scheme='fused': "
+                         f"{buffers.id_buffer.shape[0]} triangles (<= {MAX_TRIS}), "
+                         f"{buffers.lights.shape[0]} lights (<= {MAX_LIGHTS}), atlases of "
+                         f"{texels} texels (<= {MAX_TEXELS} each)")
+    if kernels is None:
+        from . import fused_kernel as kernels
+
+    cam, dirs, ndc, w4, ids, mat = frame_inputs(buffers, width, height, camera_pos,
+                                                 view_matrix)
+    dev = cam.device
+    seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
+    cos_samples = torch.tensor([sample_cos(s) for s in range(config.samples_per_ray)],
+                               dtype=torch.float32, device=dev)
+    block = kernels.fused_frame(dirs, ndc, w4, ids, mat, buffers.lights.contiguous(),
+                                buffers.ambient, buffers.albedo_tab, buffers.pbr_tab,
+                                buffers.tpo_tab, cam, seed, cos_samples, config)
+    return mrt_from_block(buffers, cam, block)

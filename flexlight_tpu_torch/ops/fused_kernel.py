@@ -1,6 +1,7 @@
-"""The kernel wrappers of scheme="fused_split": PRE and POST
-(csrc/fused.cu), kernels 4 and 5 of the port, behind their plain versions
-in ops.fused."""
+"""The kernel wrappers of the fused schemes (csrc/fused.cu), behind their
+plain versions in ops.fused: PRE and POST of scheme="fused_split",
+kernels 4 and 5 of the port, and the whole-frame kernel of
+scheme="fused", kernel 10."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import torch
 
 from .. import _native
 from .brdf import SQRT3
-from .fused import SP_C, TEX_C, sp_post_plain, sp_pre_plain
+from .fused import FR_C, SP_C, TEX_C, fused_frame_plain, sp_post_plain, sp_pre_plain
 
 _RNG_MODES = {"hash": 0, "counter": 1}
 
@@ -54,6 +55,50 @@ def _sp_post_launch(lib, stream, state, tex, ndc, w4, ids, mat, lights, cam,
     return state
 
 
+def _table_args(tab, name: str, dev) -> list:
+    """The C arguments of one AtlasTable: texels (u8 or f32), whether they
+    are u8, tile_info, its slot count, meta."""
+    texels, info, meta = tab
+    if texels.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"{name}.texels: expected uint8 or float32, got {texels.dtype}")
+    _native.require(texels, f"{name}.texels", texels.dtype, (texels.shape[0], 3), dev)
+    _native.require(info, f"{name}.tile_info", torch.int32, (info.shape[0], 3), dev)
+    _native.require(meta, f"{name}.meta", torch.int32, (5,), dev)
+    return [_native.ptr(texels), int(texels.dtype == torch.uint8), _native.ptr(info),
+            info.shape[0], _native.ptr(meta)]
+
+
+def _fused_frame_launch(lib, stream, dirs, ndc, w4, ids, mat, lights, ambient, albedo_tab,
+                        pbr_tab, tpo_tab, cam, seed, cos_samples, config):
+    dev = dirs.device
+    n = dirs.shape[1]
+    tp = w4.shape[1]
+    spp = config.samples_per_ray
+    _native.require(dirs, "dirs", torch.float32, (3, n), dev)
+    _native.require(ndc, "ndc", torch.float32, (2, n), dev)
+    _native.require(w4, "w4", torch.float32, (4, tp, 16), dev)
+    _native.require(ids, "ids", torch.int32, (tp,), dev)
+    _native.require(mat, "mat", torch.float32, (mat.shape[0], 49), dev)
+    n_lights = lights.shape[0]
+    _native.require(lights, "lights", torch.float32, (n_lights, 2, 3), dev)
+    _native.require(ambient, "ambient", torch.float32, (3,), dev)
+    _native.require(cam, "cam", torch.float32, (3,), dev)
+    _native.require(seed, "seed", torch.float32, (), dev)
+    _native.require(cos_samples, "cos_samples", torch.float32, (spp,), dev)
+    if config.rng not in _RNG_MODES:
+        raise ValueError(f"unknown rng mode {config.rng!r}")
+    tables = (_table_args(albedo_tab, "albedo_tab", dev) + _table_args(pbr_tab, "pbr_tab", dev)
+              + _table_args(tpo_tab, "tpo_tab", dev))
+    out = torch.empty((FR_C, n), dtype=torch.float32, device=dev)
+    _native.check(lib.fl_fused_frame(
+        _native.ptr(out), _native.ptr(dirs), _native.ptr(ndc), _native.ptr(w4), tp,
+        _native.ptr(ids), _native.ptr(mat), _native.ptr(lights), n_lights,
+        _native.ptr(ambient), *tables, _native.ptr(cam), _native.ptr(seed),
+        _native.ptr(cos_samples), spp, 1.0 / spp, config.max_reflections,
+        _RNG_MODES[config.rng], config.min_importancy * SQRT3, n, stream), "fused_frame")
+    return out
+
+
 sp_pre = _native.Kernel(
     "sp_pre", sp_pre_plain, _sp_pre_launch,
     source="flexlight_tpu_torch/csrc/fused.cu",
@@ -62,3 +107,7 @@ sp_post = _native.Kernel(
     "sp_post", sp_post_plain, _sp_post_launch,
     source="flexlight_tpu_torch/csrc/fused.cu",
     replaces="flexlight_tpu/ops/fused.py:944")
+fused_frame = _native.Kernel(
+    "fused_frame", fused_frame_plain, _fused_frame_launch,
+    source="flexlight_tpu_torch/csrc/fused.cu",
+    replaces="flexlight_tpu/ops/fused.py:175")

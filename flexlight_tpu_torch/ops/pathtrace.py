@@ -13,10 +13,11 @@ with the traversals in the closest-hit / any-hit kernels of
 ops.intersect_kernel, scheme="sparse" the same around the worklist casts
 of ops.intersect_sparse (large scenes); scheme="fused_split" (ops.fused)
 runs everything but bounce_tex in two fused kernels whose plain versions
-are built from the same stages. On the kernel and sparse schemes,
-render_mrt(shade_kernel=True) runs the shading in the kernels of
-ops.shade instead (bounce_shade, or bounce_pre + a trivial bounce_tex +
-bounce_shade), through light_trace's hooks.
+are built from the same stages, and scheme="fused" the whole frame in
+one kernel whose plain version is the fused_split frame. On the kernel
+and sparse schemes, render_mrt(shade_kernel=True) runs the shading in
+the kernels of ops.shade instead (bounce_shade, or bounce_pre + a
+trivial bounce_tex + bounce_shade), through light_trace's hooks.
 
 The carry has no counterpart of flexlight_tpu's `original_id_acc`: no
 render target reads it.
@@ -349,7 +350,7 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i: int,
 
     ray_dir = v3.where3(m, v3.normalize3(v3.sub3(ray_origin, last_hit_point)),
                         carry.ray_dir)
-    sign_dir = torch.sign(v3.dot3(ray_dir, smooth_normal))
+    sign_dir = v3.sign(v3.dot3(ray_dir, smooth_normal))
     smooth_normal = v3.scale3(smooth_normal, -sign_dir)
 
     rv = noise4(ndc2[0], ndc2[1], f32(i, zero) + cos_sample_n, random_seed,
@@ -425,7 +426,7 @@ def next_ray_dir(req: ShadeRequest, tpo):
     n_dot_i = v3.dot3(smooth_normal, ray_dir)
     reflected = v3.sub3(ray_dir, v3.scale3(smooth_normal, 2.0 * n_dot_i))
     inv_eta = 1.0 / tpo[2]
-    eta = inv_eta + (tpo[2] - inv_eta) * torch.clamp_min(req.sign_dir, 0.0)
+    eta = inv_eta + (tpo[2] - inv_eta) * v3.clamp_min0(req.sign_dir)
     k = 1.0 - eta * eta * (1.0 - n_dot_i * n_dot_i)
     refr_coef = eta * n_dot_i + v3.sqrt(torch.clamp_min(k, 0.0))
     refracted = v3.where3(
@@ -601,9 +602,11 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     in drawable order (flexlight_tpu/ops/pathtrace.py:957-1069,
     1174-1197). scheme="fused_split": the per-bounce PRE / POST kernels of
     ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
-    ops.fused_kernel's wrappers). `kernels` may be any object with those
-    attributes, such as models.pathtracer.PLAIN. The other schemes of
-    flexlight_tpu are listed in ROADMAP.md.
+    ops.fused_kernel's wrappers). scheme="fused": the whole frame in one
+    kernel of ops.fused (`kernels.fused_frame`), on scenes within
+    ops.fused.fused_eligible, identical to "fused_split". `kernels` may be
+    any object with those attributes, such as models.pathtracer.PLAIN.
+    The other schemes of flexlight_tpu are listed in ROADMAP.md.
 
     `shade_kernel=True` (kernel and sparse schemes) runs each bounce's
     shading in a kernel of ops.shade, routed as flexlight_tpu routes
@@ -611,20 +614,21 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     `kernels.interp_shade` (bounce_pre, texture select and bounce_shade),
     other scenes with <= 256 lights `kernels.shade` (bounce_shade); default
     ops.shade_kernel's wrappers. Where neither applies, or on
-    scheme="fused_split", it raises."""
-    if scheme == "fused_split":
+    scheme="fused_split" or "fused", it raises."""
+    if scheme in ("fused_split", "fused"):
         if shade_kernel:
-            raise ValueError("shade_kernel=True shades the bounces of scheme='kernel' and "
-                             "'sparse'; scheme='fused_split' shades inside its POST kernel")
-        from .fused import render_mrt_fused_split
+            raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
+                             f"'sparse'; scheme={scheme!r} shades inside its own kernel")
+        from . import fused
 
-        return render_mrt_fused_split(buffers, width, height, camera_pos,
-                                      view_matrix, config, random_seed,
-                                      kernels=kernels)
+        render = fused.render_mrt_fused_split if scheme == "fused_split" else \
+            fused.render_mrt_fused
+        return render(buffers, width, height, camera_pos, view_matrix, config, random_seed,
+                      kernels=kernels)
     if scheme not in ("kernel", "sparse"):
         raise NotImplementedError(
-            f"scheme={scheme!r} is not ported (ROADMAP.md, Queue 2); the port "
-            "renders with scheme='kernel', 'sparse' or 'fused_split'")
+            f"scheme={scheme!r} is not ported (ROADMAP.md, Queue 1); the port renders "
+            "with scheme='kernel', 'sparse', 'fused_split' or 'fused'")
     bounce_post_impl = bounce_step_impl = None
     if shade_kernel:
         from . import shade

@@ -58,6 +58,24 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+FLT_MIN = 1.1754943508222875e-38  # the least normal float32
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign as flexlight_tpu computes it: +-1, the signed zero of x
+    for +-0, and NaN for NaN. XLA on the CPU flushes denormal inputs, so
+    for |x| < FLT_MIN it is the signed zero too. torch.sign gives +0 for
+    -0 and NaN, and +-1 for a denormal."""
+    return torch.where(torch.abs(x) < FLT_MIN, x * 0.0,
+                       torch.where(torch.isnan(x), x, torch.sign(x)))
+
+
+def clamp_min0(x: torch.Tensor) -> torch.Tensor:
+    """jnp.maximum(x, 0.0): NaN stays NaN and -0 becomes +0 (where
+    torch.clamp_min keeps -0)."""
+    return torch.clamp_min(x, 0.0) + 0.0
+
+
 def norm3(a: V3) -> torch.Tensor:
     return sqrt(dot3(a, a))
 

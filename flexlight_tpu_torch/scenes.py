@@ -9,6 +9,11 @@ same size from a seed. Given another engine (`engine=`, such as
 flexlight_tpu's FlexLight), `theater` builds the same scene with that
 engine's own classes, so a test can flatten both packages' scenes.
 
+`wave` is examples/wave.py's build_scene line for line (the port of the
+reference's examples/wave.js: a grid of cuboid pillars bobbing through
+their own transforms, over a plane with a 1x1 PBR texture; 50 triangles
+and one light at the default side length), with its `animate`.
+
 `dragon` is examples/dragon.py's build_scene line for line (the port of
 the reference's examples/dragon.js: a glass dragon, a metallic monkey
 head that turns to face the camera, a glass sphere, on a metallic plane).
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import math
 import os
+import random
 
 import numpy as np
 
@@ -117,6 +123,62 @@ def theater(texture: Texture, device=None, engine=None):
 
     scene.queue.push([bottom_plane, back_plane, left_plane, right_plane, cube])
     return engine
+
+
+def wave(side_length: int = 2, device=None, engine=None):
+    """examples/wave.py:build_scene on a new flexlight_tpu_torch.FlexLight
+    on `device`, or on `engine` (a FlexLight of either package with a
+    canvas of 192 x 192). Returns (engine, animate): `animate(frame)`
+    moves every pillar one step of its bobbing (wave.js)."""
+    if engine is None:
+        engine = FlexLight((192, 192), device=device)
+    engine.io = "web"
+    camera = engine.camera
+    scene = engine.scene
+
+    normal_tex = scene.texture_from_rme([0.7, 1, 0], 1, 1)
+    cuboid_tex = scene.texture_from_rme([0.1, 0, 0.02], 1, 1)
+    scene.pbr_textures.push(normal_tex, cuboid_tex)
+    scene.translucency_textures.push(scene.texture_from_tpo([0, 0, 1.3 / 4], 1, 1))
+    scene.standardTextureSizes = [1, 1]
+
+    scene.primaryLightSources = [[-1, 10, -1]]
+    scene.primary_light_sources[0].intensity = 1000
+
+    this_plane = scene.Plane([-100, -1, -100], [100, -1, -100], [100, -1, 100],
+                             [-100, -1, 100])
+    this_plane.textureNums = [-1, 0, -1]
+    scene.queue.push(this_plane)
+
+    camera.x, camera.y, camera.z = 4 + side_length, side_length + 2, 4 + side_length
+    camera.fx, camera.fy = 0.75 * math.pi, 0.6
+
+    random.seed(0)
+    transforms = []
+    for i in range(side_length):
+        row = []
+        for j in range(side_length):
+            transform = scene.Transform()
+            cuboid = scene.Cuboid(i, i + 1, 0, 3.1, j, j + 1)
+            cuboid.transform = transform
+            cuboid.color = [random.random() * 255, random.random() * 255,
+                            random.random() * 255]
+            cuboid.roughness = 0.5
+            scene.queue.push(cuboid)
+            row.append(transform)
+        transforms.append(row)
+
+    engine.renderer = "pathtracer"
+
+    state = {"t": 0.0}
+
+    def animate(_frame):
+        state["t"] += 0.015
+        for i in range(side_length):
+            for j in range(side_length):
+                transforms[i][j].move(0, 0.1 + math.sin(state["t"] + i * 0.5 + j), 0)
+
+    return engine, animate
 
 
 def stand_in_mesh(rng: np.random.Generator, segments: int, rings: int, scale, lift: float,

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each kernel wrapper on CUDA tensors
 against its plain version on the same tensors, and a small theater frame
-(and a small dragon stand-in frame, scheme="sparse") through all of them.
+(and a small dragon stand-in frame, scheme="sparse", and a small wave
+frame, scheme="fused") through all of them.
 Marked `gpu`; without a CUDA device these tests skip.
 Run on a machine with a card:
 
@@ -239,3 +240,70 @@ def test_shade_kernel_frame_matches_the_plain_frame(shade_frames, name):
     assert np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_img)
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+
+
+@pytest.fixture(scope="module")
+def wave_frame(dev):
+    """One 96x64 wave frame (full pipeline, 2 spp, 5 bounces) on
+    scheme="fused" with the plain versions, recording fused_frame's
+    inputs; and the frame."""
+    from flexlight_tpu_torch import reset_global_registry
+    from flexlight_tpu_torch.models.pathtracer import PLAIN, PathTracer
+    from flexlight_tpu_torch.scenes import wave
+
+    calls = []
+
+    def recorder(*a):
+        calls.append(a)
+        return PLAIN.fused_frame(*a)
+
+    reset_global_registry()
+    e, animate = wave(device=dev)
+    animate(0)
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=2, max_reflections=5)
+    img = PathTracer(96, 64, e.scene, e.camera, cfg, dev, scheme="fused",
+                     kernels=PLAIN._replace(fused_frame=recorder)).render_frame()
+    return calls, img, e, cfg
+
+
+def test_fused_frame_matches_plain_on_the_card(wave_frame):
+    """The whole-frame kernel's block: identical to its plain version's
+    (NaN equals NaN)."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+
+    calls = wave_frame[0]
+    assert len(calls) == 1
+    before = KERNELS.fused_frame.launches
+    got = KERNELS.fused_frame(*calls[0])
+    ref = PLAIN.fused_frame(*calls[0])
+    torch.cuda.synchronize()
+    assert KERNELS.fused_frame.launches == before + 1
+    assert got.is_cuda and got.shape == ref.shape
+    assert ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all()
+
+
+def test_fused_frame_through_the_kernels(wave_frame, dev):
+    """One launch of fused_frame per frame and no other tracing kernel;
+    the frame within the golden budget of the plain frame; the MRT
+    identical to scheme="fused_split"'s through its kernels."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
+    from flexlight_tpu_torch.ops.pathtrace import render_mrt
+
+    _, plain_img, e, cfg = wave_frame
+    counts = [k.launches for k in KERNELS]
+    tracer = PathTracer(96, 64, e.scene, e.camera, cfg, dev, scheme="fused")
+    img = tracer.render_frame()
+    ran = {n: k.launches - c for n, k, c in zip(KernelSet._fields, KERNELS, counts)
+           if k.launches > c}
+    assert ran == {"fused_frame": 1, "first_blur": 3, "second_blur": 3, "final_blur": 1,
+                   "fxaa": 1}
+    assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
+    d = np.abs(img - plain_img)
+    assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+    args = (tracer._buffers, 96, 64, e.camera.position, e.camera.view_matrix(96, 64), cfg,
+            1.0)
+    a = render_mrt(*args, scheme="fused")
+    b = render_mrt(*args, scheme="fused_split")
+    for x, y in zip(a, b):
+        assert ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()

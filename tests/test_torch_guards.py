@@ -24,9 +24,9 @@ def _run(code):
 
 
 def test_port_and_a_cpu_frame_never_import_jax():
-    """Importing the port and rendering a CPU frame on both schemes loads
-    no module of jax and none of flexlight_tpu: the port keeps its own copy
-    of what it uses."""
+    """Importing the port and rendering a CPU frame on the fused_split,
+    kernel and fused schemes loads no module of jax and none of
+    flexlight_tpu: the port keeps its own copy of what it uses."""
     code = """
 import sys
 import flexlight_tpu_torch as port
@@ -42,6 +42,11 @@ assert img.shape == (12, 16, 3)
 assert e.renderer.metrics.last["scheme"] == "fused_split"
 pt = PathTracer(16, 12, e.scene, e.camera, e.config, "cpu", scheme="kernel")
 assert pt.render_frame().shape == (12, 16, 3)
+from flexlight_tpu_torch.scenes import wave
+w, animate = wave(device="cpu")
+animate(0)
+pt = PathTracer(16, 12, w.scene, w.camera, e.config, "cpu", scheme="fused")
+assert pt.render_frame().shape == (12, 16, 3) and pt.metrics.last["scheme"] == "fused"
 print("jax" in sys.modules, any(m.startswith("jax.") or m.startswith("jaxlib") for m in sys.modules),
       sorted(m for m in sys.modules if m == "flexlight_tpu" or m.startswith("flexlight_tpu.")))
 """
@@ -84,6 +89,8 @@ def test_device_tensor_call_raises_instead_of_falling_back(monkeypatch):
         KERNELS.any_hit(torch.empty(4, 1, 16, device="meta"), (meta,) * 3, (meta,) * 3, meta)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         KERNELS.sp_post(torch.empty(55, 4, device="meta"), *(None,) * 11)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        KERNELS.fused_frame(torch.empty(3, 4, device="meta"), *(None,) * 13)
     assert all(k.launches == 0 for k in KERNELS)
 
 
@@ -171,15 +178,17 @@ def test_u8_frames_and_light_updates():
 def test_the_port_reads_no_flexlight_environment_variable(monkeypatch):
     """flexlight_tpu takes knobs from FLEXLIGHT_* environment variables at
     trace time (FLEXLIGHT_SHADE_KERNEL, FLEXLIGHT_FORCE_2D, ...); the port
-    takes arguments. No module of flexlight_tpu_torch names such a
-    variable outside its docstrings and comments, and CPU frames on every
-    scheme, with the shading kernels' switch on and off, read none."""
+    takes arguments (flexlight_tpu's FLEXLIGHT_FUSED_RAY_TILE of
+    scheme="fused" has no counterpart). No module of flexlight_tpu_torch
+    names such a variable outside its docstrings and comments, and CPU
+    frames on every scheme, with the shading kernels' switch on and off,
+    read none."""
     import ast
     import pathlib
 
     import flexlight_tpu_torch as port
     from flexlight_tpu_torch.models.pathtracer import PathTracer
-    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater, wave
 
     named = []
     for path in sorted(pathlib.Path(port.__file__).parent.rglob("*.py")):
@@ -218,4 +227,7 @@ def test_the_port_reads_no_flexlight_environment_variable(monkeypatch):
                            ("sparse", False), ("sparse", True)):
         PathTracer(8, 8, e.scene, e.camera, cfg, "cpu", scheme=scheme,
                    shade_kernel=switch).render_frame()
+    # scheme="fused" serves small atlases only: wave
+    w, _ = wave(device="cpu")
+    PathTracer(8, 8, w.scene, w.camera, cfg, "cpu", scheme="fused").render_frame()
     assert not [k for k in read if str(k).startswith("FLEXLIGHT_")], read

@@ -19,7 +19,10 @@ torch's CPU kernels, which the card does not share:
   under rng="hash" the plain versions take the host's sinf (`host_sin`),
   as the hash tests against flexlight_tpu take its sin, and the kernels
   must again be identical to them.
-On the card, chip_smoke.py holds the same comparisons at 1080p."""
+The whole-frame kernel of scheme="fused" is held on wave, example2,
+cornell and a cornell with small real textures, with some rays dead from
+the first bounce. On the card, chip_smoke.py holds the same comparisons
+at 1080p."""
 
 import ctypes
 import ctypes.util
@@ -317,3 +320,85 @@ def test_dead_rays_are_left_alone_by_the_shade_kernels(lib, exact_sqrt):
             assert not state[H.SURF].any()
             before[H.SURF] = 0.0
         assert torch.equal(state, before) and torch.equal(req, req_before), kind
+
+
+def _fused_frame_args(name, spp, rng_mode, dead=False, size=12):
+    """The inputs of one fused_frame call: `name`'s camera rays at size x
+    size, its scene tables, seed 1 and the samples' phases. `dead` points
+    every fifth ray straight up, past every triangle: those rays are dead
+    from the first bounce. "textured" is cornell with small real textures
+    (8x2 standard tiles, a u8 albedo table with one 4x1 texture stored at
+    its own size, an f32 PBR table) on the cubes and the floor."""
+    import flexlight_tpu_torch as port
+    from flexlight_tpu_torch.ops.buffers import build_scene_buffers
+    from flexlight_tpu_torch.ops.pathtrace import sample_cos
+    from tests.test_torch_scene_copy import build
+
+    scene, camera = build("cornell" if name == "textured" else name, port)
+    if name == "textured":
+        rng_np = np.random.default_rng(7)
+        byte = lambda shape: (rng_np.integers(0, 256, shape).astype(np.float32)  # noqa: E731
+                              * np.float32(1.0 / 255.0))
+        scene.standardTextureSizes = [8, 2]
+        scene.textures.push(port.Texture(byte((2, 8, 3))), port.Texture(byte((1, 4, 3))))
+        scene.pbr_textures.push(port.Texture(rng_np.uniform(0, 1, (2, 8, 3)).astype(np.float32)))
+        scene.queue[0][0].textureNums = [0, 0, -1]
+        scene.queue[0][1].textureNums = [1, -1, -1]
+        scene.queue[1][0].textureNums = [1, 0, -1]
+    tb = build_scene_buffers(scene, "cpu")
+    cfg = Config(temporal=False, filter=False, antialiasing=None, rng=rng_mode,
+                 max_reflections=3, samples_per_ray=spp)
+    cam, dirs, ndc, w4, ids, mat = F.frame_inputs(tb, size, size, camera.position,
+                                                   camera.view_matrix(size, size))
+    if dead:
+        dirs[:, ::5] = torch.tensor([0.0, 1.0, 0.0])[:, None]
+    cos = torch.tensor([sample_cos(s) for s in range(spp)], dtype=torch.float32)
+    return (dirs, ndc, w4, ids, mat, tb.lights, tb.ambient, tb.albedo_tab, tb.pbr_tab,
+            tb.tpo_tab, cam, torch.tensor(1.0), cos, cfg), tb
+
+
+@pytest.mark.parametrize("name,spp,rng_mode,dead", [
+    ("wave", 2, "counter", True), ("wave", 1, "hash", False), ("example2", 1, "counter", False),
+    ("cornell", 2, "counter", False), ("textured", 1, "counter", False)])
+def test_fused_frame_kernel_is_bit_exact(lib, exact_sqrt, host_sin, name, spp, rng_mode, dead):
+    """The whole-frame kernel against its plain version (the fused_split
+    frame with the plain PRE and POST): every channel of the frame block
+    identical. wave takes its plane's roughness from a 2x2048 PBR atlas;
+    "textured" walks the fetch's tiles, stored sizes and both texel
+    types."""
+    args, tb = _fused_frame_args(name, spp, rng_mode, dead)
+    if name == "textured":
+        assert tb.albedo_tab.texels.dtype == torch.uint8
+        assert tb.pbr_tab.texels.dtype == torch.float32
+        assert tb.albedo_tab.tile_info[1].tolist()[1:] == [4, 1]
+    got = SK._fused_frame_launch(lib, 0, *args)
+    ref = F.fused_frame_plain(*args)
+    assert got.shape == (F.FR_C, 144)
+    bad = (got != ref).any(dim=1).nonzero().flatten().tolist()
+    assert not bad, bad
+    alive = got[F.FR_PPART + 3] >= 0
+    assert alive.any() and (got[F.FR_COLOR][alive] > 0).any()
+    if dead:
+        assert not alive[::5].any() and alive.sum() > 100
+
+
+def test_fused_frame_kernel_renders_the_plain_frame(lib, exact_sqrt):
+    """A wave frame (full pipeline, 16x16, 2 spp, 5 bounces) through
+    PathTracer(scheme="fused") with the emulated kernel is the frame with
+    the plain version."""
+    from flexlight_tpu_torch import reset_global_registry
+    from flexlight_tpu_torch.scenes import wave
+
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=2, max_reflections=5, rng="counter")
+    launch = lambda *a: SK._fused_frame_launch(lib, 0, *a)  # noqa: E731
+    frames = []
+    for kernels in (PLAIN, PLAIN._replace(fused_frame=launch)):
+        reset_global_registry()
+        e, animate = wave(device="cpu")
+        animate(0)
+        tracer = PathTracer(16, 16, e.scene, e.camera, cfg, "cpu", scheme="fused",
+                            kernels=kernels)
+        frames.append(tracer.render_frame())
+    assert frames[0].max() > 0
+    np.testing.assert_array_equal(frames[1], frames[0])

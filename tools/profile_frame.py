@@ -1,7 +1,7 @@
 """Where the time of one of the port's frames goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--scene theater|dragon]
-                                   [--scheme auto|fused_split|kernel|sparse]
+    python3 tools/profile_frame.py [--scene theater|dragon|wave]
+                                   [--scheme auto|fused_split|fused|kernel|sparse]
                                    [--shade-kernel]
                                    [--device cuda:0] [--seed 0] [--timed 8] [--profiled 3]
                                    [--width 1920] [--height 1080]
@@ -10,9 +10,11 @@
 Renders --scene with the headline config (temporal 4, 3+3+final filter,
 FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
 --device with --scheme: theater (stand-in wood texture from --seed;
-"auto" resolves to "fused_split") or the dragon stand-in (its seeded OBJ
+"auto" resolves to "fused_split"), the dragon stand-in (its seeded OBJ
 files written under build/objects/; 44,890 triangles, "auto" resolves to
-"sparse"; the monkey head's look-at animation runs before every frame).
+"sparse"; the monkey head's look-at animation runs before every frame)
+or wave (50 triangles, 1x1 textures: "auto" resolves to "fused_split",
+and it is eligible for "fused"; its pillars move before every frame).
 --shade-kernel turns the renderer's shade_kernel switch on (kernel and
 sparse schemes: the shading kernels of ops.shade).
 It reports:
@@ -53,6 +55,7 @@ PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
          ("fl_sparse_flags", "sparse tile flags"), ("fl_sparse_key", "sparse nearest2 key"),
          ("fl_sparse_closest", "sparse closest hit"), ("fl_sparse_any", "sparse any hit"),
          ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
+         ("fl_fused_frame", "whole frame (fused)"),
          ("fl_shade", "shade"), ("fl_interp_shade", "interp_shade"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
          ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
@@ -81,9 +84,9 @@ def device_kernels(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", default="theater", choices=("theater", "dragon"))
+    ap.add_argument("--scene", default="theater", choices=("theater", "dragon", "wave"))
     ap.add_argument("--scheme", default="auto",
-                    choices=("auto", "fused_split", "kernel", "sparse"))
+                    choices=("auto", "fused_split", "fused", "kernel", "sparse"))
     ap.add_argument("--shade-kernel", action="store_true")
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
@@ -108,7 +111,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from flexlight_tpu_torch import Config, reset_global_registry
     from flexlight_tpu_torch.models.pathtracer import PathTracer
-    from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
+    from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -120,6 +123,8 @@ def main() -> int:
     reset_global_registry()
     if args.scene == "dragon":
         e, animate = dragon(args.seed, os.path.join(ROOT, "build", "objects"), device=dev)
+    elif args.scene == "wave":
+        e, animate = wave(device=dev)
     else:
         e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
     tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
