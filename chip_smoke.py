@@ -19,8 +19,11 @@ Phases, one line each (any failure exits non-zero):
      four worklist kernels of scheme="sparse" (tile flags, nearest2 key,
      closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
      frame with shade_kernel=True: its primary cast, its first shadow cast
-     and its first bounce cast, and the interp_shade kernel on the state of
-     each of its 5 bounces; and the whole-frame kernel of scheme="fused"
+     and its first bounce cast (closest hit and any hit also timed on every
+     cast of the frame, 5 + 5, against their summed bound, with the
+     ray-triangle tests their warp walk issues beside those the bound
+     counts), and the interp_shade kernel on the state of each of its 5
+     bounces; and the whole-frame kernel of scheme="fused"
      (fused_frame) on wave's 1080p camera rays at 2 spp, 5 bounces. Each
      kernel takes the same operations in the same order as its plain
      version, so their outputs must be identical; prints the number of
@@ -65,8 +68,10 @@ Phases, one line each (any failure exits non-zero):
      above; one frame's MRT on scheme="fused" must be identical to the
      same frame's on scheme="fused_split" (both through the kernels), and
      the CUDA-event time of both MRT passes is printed.
-Then one JSON line per the kernels, the card's name and power limit, and a
-last line {"ok": true, "device": {...}}.
+Then one JSON line per the kernels (the worklist closest and any hits' ms
+and bound_ms are those of their first compared cast, frame_ms and
+frame_bound_ms the sums over the frame's casts), the card's name and power
+limit, and a last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -147,6 +152,21 @@ OPS_FLAG = OPS_SLAB + 4
 OPS_KEY_BOX = OPS_SLAB + 4
 OPS_INV_DIR = 6
 OPS_KEY_RAY = OPS_INV_DIR + 4
+# sparse.cu's worklist casts test a 16-float triangle record and stop at the
+# first exact reject that takes the pair, so each pair the bound needs
+# counts the operations its own test reaches: det (3 multiplies, 2 adds)
+# and its reject; then, closest hit, det's sign, sdet (3 multiplies, 3
+# adds) and its sign test, any hit sdet and its test; then udet and vdet
+# (9 multiplies, 8 adds each), each with its reject where the window's u /
+# v edge is above 0 (bounce casts, every any hit); a survivor then takes
+# 1 / det and the three scales, and the window's compares up to its first
+# false one (u + v adds one); an accepted closest hit adds the running
+# minimum's compare. Per ray: |d|^2, its test and six products of d and o.
+OPS_REC_RAY = 12
+OPS_REC_DET = 6
+OPS_REC_SDET = {True: 8, False: 7}   # closest hit, any hit
+OPS_REC_UV = 17
+OPS_REC_DIVIDE = 4
 
 
 def fail(msg: str) -> None:
@@ -202,8 +222,8 @@ def golden_budget(a, b):
 
 
 def ptxas_usage(log: str):
-    """{kernel function: {registers, stack, spill_st, spill_ld}} from the
-    output of nvcc -Xptxas -v."""
+    """{kernel function: {registers, stack, spill_st, spill_ld, smem}} from
+    the output of nvcc -Xptxas -v (smem: bytes of static shared memory)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -219,6 +239,9 @@ def ptxas_usage(log: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, {}).update(registers=int(m.group(1)))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out.setdefault(name, {}).update(smem=int(m.group(1)))
     return out
 
 
@@ -255,8 +278,10 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
         from flexlight_tpu_torch.ops.buffers import build_scene_buffers
-        from flexlight_tpu_torch.ops.intersect_sparse_kernel import (EXIT_ABS, EXIT_REL,
-                                                                     TRI_TILE)
+        from flexlight_tpu_torch.ops.intersect_sparse import REC
+        from flexlight_tpu_torch.ops.intersect_sparse_kernel import (CAST_LANES, EXIT_ABS,
+                                                                     EXIT_REL, TRI_TILE,
+                                                                     record_products)
         from flexlight_tpu_torch.ops.pathtrace import render_mrt, sample_cos
         from flexlight_tpu_torch.post.filter_kernel import byte_i
         from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
@@ -271,7 +296,8 @@ def drive(args, dev, smi: str) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for fn, use in sorted(ptxas_usage(_native.build_log(lib)).items()):
         print(f"[build] {fn}: {use.get('registers')} registers, {use.get('stack')} bytes "
-              f"stack, {use.get('spill_st')}/{use.get('spill_ld')} bytes spill stores/loads",
+              f"stack, {use.get('spill_st')}/{use.get('spill_ld')} bytes spill stores/loads, "
+              f"{use.get('smem', 0)} bytes static shared memory",
               flush=True)
 
     w, h = args.width, args.height
@@ -347,8 +373,10 @@ def drive(args, dev, smi: str) -> int:
                           for n, f in zip(KernelSet._fields, PLAIN)))
     # the worklist kernels' inputs: the first casts of one dragon stand-in
     # frame through the kernels (flags: primary, shadow 0, bounce 1; key:
-    # shadow 0, bounce 1; closest hit: primary, bounce 1; any hit: shadow 0)
-    keep = {"sparse_flags": 3, "sparse_key": 2, "sparse_closest": 2, "sparse_any": 1}
+    # shadow 0, bounce 1), and every cast of closest hit (primary, bounces
+    # 1-4) and any hit (shadows 0-4)
+    keep = {"sparse_flags": 3, "sparse_key": 2, "sparse_closest": config.max_reflections,
+            "sparse_any": config.max_reflections}
     sparse_calls = {name: [] for name in sparse_names}
 
     def first_calls(name, fn):
@@ -643,7 +671,9 @@ def drive(args, dev, smi: str) -> int:
     # the worklist kernels (scheme="sparse") on the dragon frame's wavefronts
     def check_sparse(name, label, args_, bound_of, main=True):
         """Kernel vs plain: identical outputs. The plain worklist casts take
-        seconds at 1080p: their time is that of the compared call."""
+        seconds at 1080p: their time is that of the compared call. Returns
+        (kernel ms, bound_of's (bound, what else it counted), kernel
+        outputs)."""
         kernel_fn = lambda: getattr(KERNELS, name)(*args_)  # noqa: E731
         ko = kernel_fn()
         start = torch.cuda.Event(enable_timing=True)
@@ -653,8 +683,9 @@ def drive(args, dev, smi: str) -> int:
         end.record()
         end.synchronize()
         count, err = differences(ko, po, False)
-        report(name, label, count, err, cuda_ms(kernel_fn), start.elapsed_time(end),
-               bound_of(args_, ko), main)
+        k_ms, got = cuda_ms(kernel_fn), bound_of(args_, ko)
+        report(name, label, count, err, k_ms, start.elapsed_time(end), got[0], main)
+        return k_ms, got, ko
 
     def live_rays(ml):
         return int((ml > 0).sum())
@@ -662,49 +693,150 @@ def drive(args, dev, smi: str) -> int:
     def flags_bound(a, out):
         amin, ml = a[0], a[4]
         n, k, live = ml.shape[0], amin.shape[0], live_rays(ml)
-        return bound(f32 * (7 * n + 6 * k + out.numel()), live * (OPS_INV_DIR + k * OPS_FLAG))
+        return bound(f32 * (7 * n + 6 * k + out.numel()),
+                     live * (OPS_INV_DIR + k * OPS_FLAG)), None
 
     def key_bound(a, out):
         bmin, ml = a[0], a[4]
         n, nb, live = ml.shape[0], bmin.shape[0], live_rays(ml)
-        return bound(f32 * (7 * n + 6 * nb + n), live * (OPS_KEY_RAY + nb * OPS_KEY_BOX))
+        return bound(f32 * (7 * n + 6 * nb + n), live * (OPS_KEY_RAY + nb * OPS_KEY_BOX)), None
 
     def tile_bytes(tlist, slots):
         """Bytes of the worklist slots [RT] that each ray tile reads and of
-        the W tiles those slots name."""
+        the triangle records of the tiles those slots name."""
         used = torch.arange(tlist.shape[1], device=dev)[None] < slots[:, None]
         tiles = int(torch.unique(tlist[used]).numel())
-        return f32 * (int(slots.sum()) + tiles * 4 * TRI_TILE * 16)
+        return f32 * (int(slots.sum()) + tiles * TRI_TILE * REC)
 
-    def sparse_closest_bound(a, out):
-        """The tests the walk cannot skip: for each live ray, the slots of
-        its ray tile's worklist whose entry bound lies within the guard band
-        of its own final best hit (the whole worklist where it hits
-        nothing)."""
-        tlist, tms, counts, ml, rt_size = a[1], a[2], a[3], a[6], a[8]
-        n, rt = ml.shape[0], counts.shape[0]
+    def rec_test_ops(det, udet, vdet, sdet, ml, edge, closest):
+        """int32 per pair: the operations of sparse.cu's test of each (ray,
+        triangle) pair with these products, up to the reject that takes it
+        (OPS_REC_*)."""
+        cull = not closest or edge > 0
+        if closest:
+            go, pos = det.abs() >= BIAS, det > 0
+
+            def sign(x):
+                return torch.where(pos, x > 0, x < 0)
+        else:
+            go = det >= BIAS
+
+            def sign(x):
+                return x > 0
+        ops = torch.full(det.shape, OPS_REC_DET, dtype=torch.int32, device=det.device)
+        ops += go * OPS_REC_SDET[closest]
+        go &= sign(sdet)
+        for x in (udet, vdet):
+            ops += go * (OPS_REC_UV + cull)
+            if cull:
+                go &= sign(x)
+        ops += go * OPS_REC_DIVIDE
+        inv = 1.0 / det
+        u, v, s = udet * inv, vdet * inv, sdet * inv
+        for step, ok in ((1, u >= edge), (1, u <= 1.0), (1, v >= edge), (2, u + v <= 1.0),
+                         (1, s > BIAS), (1, s <= ml)):
+            ops += go * step
+            go &= ok
+        return ops + go if closest else ops
+
+    def needed_test_ops(a, needed, closest, edge):
+        """The operations of the tests the walk cannot skip: each ray
+        against the 128 triangles of the first needed[rt, r] slots of its
+        ray tile's worklist, each test up to its first reject."""
+        rec, tlist = a[0], a[1]
+        o3, d3, ml, rt_size = (a[4], a[5], a[6], a[8]) if closest else a[3:7]
+        rt = tlist.shape[0]
+        o = [x.reshape(rt, rt_size, 1) for x in o3]
+        d = [x.reshape(rt, rt_size, 1) for x in d3]
+        ml = ml.reshape(rt, rt_size, 1)
+        total = 0
+        for c in range(int(needed.max())):
+            for g in (needed > c).any(dim=1).nonzero().flatten().split(1024):
+                q = rec[tlist[g, c].long()][:, None]                  # [G, 1, 128, 16]
+                prods = record_products([q[..., k] for k in range(REC)],
+                                        [x[g] for x in o], [x[g] for x in d])
+                ops = rec_test_ops(*prods, ml[g], edge, closest)
+                total += int((ops * (needed[g] > c)[..., None]).sum(dtype=torch.int64))
+        return total
+
+    def closest_slots(a, out):
+        """[RT, R]: the worklist slots each ray tests in the walk, those
+        whose entry bound lies within the guard band of its own final best
+        hit (the whole worklist where it hits nothing); none for dead rays."""
+        tms, counts, ml, rt_size = a[2], a[3], a[6], a[8]
+        rt = counts.shape[0]
         live = (ml > 0).reshape(rt, rt_size)
         best = torch.where(out[3] >= 0, out[0], POW32).reshape(rt, rt_size)
         reach = torch.searchsorted(tms, best * EXIT_REL + EXIT_ABS, right=True)
-        needed = torch.where(live, torch.minimum(reach.clamp_min(1), counts[:, None].long()), 0)
+        return torch.where(live, torch.minimum(reach.clamp_min(1), counts[:, None].long()), 0)
+
+    def any_slots(a, out):
+        """[RT, R]: the worklist slots each ray tests in the walk, up to the
+        first (in walk order) that occludes it, the whole worklist where none
+        does; none for dead rays. Found slot by slot with the plain version."""
+        rec, tlist, counts, o3, d3, ml, rt_size = a
+        rt = counts.shape[0]
+        live = (ml > 0).reshape(rt, rt_size)
+        slots = torch.where(live, counts[:, None].long(), 0)
+        todo = live & out.reshape(rt, rt_size)
+        c = 0
+        while bool(todo.any()):
+            sel = (todo.any(dim=1) & (counts > c)).nonzero().flatten()
+
+            def rays(x):
+                return x.reshape(rt, rt_size)[sel].reshape(-1).contiguous()
+
+            hit = PLAIN.sparse_any(rec, tlist[sel, c:c + 1].contiguous(),
+                                   torch.ones_like(counts[sel]), tuple(rays(x) for x in o3),
+                                   tuple(rays(x) for x in d3), rays(ml), rt_size)
+            found = todo[sel] & hit.reshape(-1, rt_size)
+            slots[sel] = torch.where(found, c + 1, slots[sel])
+            todo[sel] &= ~found
+            c += 1
+        return slots
+
+    # the casts give each ray CAST_LANES threads: a warp walks the slots of
+    # RAYS_PER_WARP rays together
+    RAYS_PER_WARP = 32 // CAST_LANES
+
+    def lane_tests(slots):
+        """The (ray, triangle) tests the warp walk issues: each warp's slots
+        up to its last ray done x its RAYS_PER_WARP rays x 128 triangles."""
+        per_warp = slots.reshape(slots.shape[0], -1, RAYS_PER_WARP).amax(dim=-1)
+        return int(per_warp.sum()) * RAYS_PER_WARP * TRI_TILE
+
+    def sparse_closest_bound(a, out):
+        """The tests the walk cannot skip: for each live ray, the slots of
+        its ray tile's worklist within the guard band of its own final best
+        hit (`closest_slots`). (bound, (tests, their operations))."""
+        tlist, ml, edge = a[1], a[6], float(a[7])
+        n, rt = ml.shape[0], tlist.shape[0]
+        needed = closest_slots(a, out)
         tests = int(needed.sum()) * TRI_TILE
+        ops = needed_test_ops(a, needed, True, edge)
         slots = needed.amax(dim=1)
         # tms is read at the slots the walk reads, tlist the same
         nbytes = f32 * (11 * n + rt + int(slots.sum())) + tile_bytes(tlist, slots)
-        return bound(nbytes, live_rays(ml) * OPS_MAKE_RAY + tests * OPS_CLOSEST_TEST)
+        return bound(nbytes, live_rays(ml) * OPS_REC_RAY + ops), (tests, ops)
 
     def sparse_any_bound(a, out):
-        """One test per occluded ray, the whole worklist per live ray that
+        """One test per occluded ray (the one that occludes it passes every
+        reject and the window), the whole worklist per live ray that
         nothing occludes; a ray tile whose live rays are all occluded reads
-        one slot."""
+        one slot. (bound, (tests, their operations))."""
         tlist, counts, ml, rt_size = a[1], a[2], a[5], a[6]
         n, rt = ml.shape[0], counts.shape[0]
         live = (ml > 0).reshape(rt, rt_size)
-        open_rays = (live & ~out.reshape(rt, rt_size)).sum(dim=1)
-        tests = int((out & (ml > 0)).sum()) + int((open_rays * counts).sum()) * TRI_TILE
+        open_ = live & ~out.reshape(rt, rt_size)
+        occluded = int((out & (ml > 0)).sum())
+        needed = torch.where(open_, counts[:, None].long(), 0)
+        tests = occluded + int(needed.sum()) * TRI_TILE
+        accept = OPS_REC_DET + OPS_REC_SDET[False] + 2 * (OPS_REC_UV + 1) + OPS_REC_DIVIDE + 7
+        ops = occluded * accept + needed_test_ops(a, needed, False, BIAS)
+        open_rays = open_.sum(dim=1)
         slots = torch.where(open_rays > 0, counts, torch.minimum(counts, live.any(dim=1).int()))
         nbytes = f32 * (7 * n + rt) + n + tile_bytes(tlist, slots)
-        return bound(nbytes, live_rays(ml) * OPS_MAKE_RAY + tests * OPS_ANY_TEST)
+        return bound(nbytes, live_rays(ml) * OPS_REC_RAY + ops), (tests, ops)
 
     def rays_label(ml):
         return f"{live_rays(ml)} of {ml.shape[0]} rays live"
@@ -717,14 +849,47 @@ def drive(args, dev, smi: str) -> int:
         a = sparse_calls["sparse_key"][i]
         check_sparse("sparse_key", f"{cast} cast, {rays_label(a[4])}, {a[0].shape[0]} "
                      "supertile boxes", a, key_bound, main=i == 0)
-    for i, cast in enumerate(("primary", "bounce 1")):
-        a = sparse_calls["sparse_closest"][i]
-        check_sparse("sparse_closest", f"{cast} cast, {rays_label(a[6])}, worklists of "
-                     f"{float(a[3].float().mean()):.1f} tiles on average", a,
-                     sparse_closest_bound, main=i == 0)
-    a = sparse_calls["sparse_any"][0]
-    check_sparse("sparse_any", f"shadow 0 cast, {rays_label(a[5])}, worklists of "
-                 f"{float(a[2].float().mean()):.1f} tiles on average", a, sparse_any_bound)
+    # rows 6 and 7 on every cast of the frame: each timed against its bound;
+    # the primary and bounce-1 closest hits and the shadow-0 any hit also
+    # against their plain versions, with the lane-tests of the warp walk
+    n_casts = config.max_reflections
+    casts = {"sparse_closest": ["primary"] + [f"bounce {b}" for b in range(1, n_casts)],
+             "sparse_any": [f"shadow {b}" for b in range(n_casts)]}
+    compared = {"sparse_closest": ("primary", "bounce 1"), "sparse_any": ("shadow 0",)}
+    for name in ("sparse_closest", "sparse_any"):
+        ml_at, counts_at = (6, 3) if name == "sparse_closest" else (5, 2)
+        bound_of = sparse_closest_bound if name == "sparse_closest" else sparse_any_bound
+        frame = [0.0, 0.0]
+        for cast, a in zip(casts[name], sparse_calls[name]):
+            label = (f"{cast} cast, {rays_label(a[ml_at])}, worklists of "
+                     f"{float(a[counts_at].float().mean()):.1f} tiles on average")
+            if cast in compared[name]:
+                k_ms, (bnd, (needed, ops)), out = check_sparse(
+                    name, label, a, bound_of, main=cast == compared[name][0])
+            else:
+                out = getattr(KERNELS, name)(*a)
+                bnd, (needed, ops) = bound_of(a, out)
+                k_ms = cuda_ms(lambda: getattr(KERNELS, name)(*a))  # noqa: B023
+                print(f"[kernel] {name} ({label}): kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                      f"({bnd[1]})", flush=True)
+            slots = closest_slots(a, out) if name == "sparse_closest" else any_slots(a, out)
+            issued = lane_tests(slots)
+            walks = slots.amax(dim=1)
+            print(f"[walk] {name} ({cast}): the warp walk issues {issued} ray-triangle tests "
+                  f"(each warp's slots up to its last ray done x {RAYS_PER_WARP} rays x "
+                  f"{TRI_TILE}{'' if name == 'sparse_closest' else ', at most'}); the bound "
+                  f"counts {needed} ({issued / max(needed, 1):.2f}x), "
+                  f"{ops / max(needed, 1):.2f} operations each on average (up to the first "
+                  f"reject), {ops / max(needed, 1) / FP32_OPS_PER_S * 1e12:.3f} ps at the "
+                  f"bound's rate; {k_ms * 1e9 / max(issued, 1):.3f} ps of kernel time per "
+                  f"test issued; {int((walks > 0).sum())} ray tiles walk, "
+                  f"{float(walks.float().mean()):.1f} slots on average, the longest "
+                  f"{int(walks.max())}", flush=True)
+            frame = [frame[0] + k_ms, frame[1] + bnd[0]]
+            del out
+        print(f"[kernel] {name}: per frame ({len(casts[name])} casts) kernel {frame[0]:.3f} ms, "
+              f"bound {frame[1]:.4f} ms ({frame[0] / frame[1]:.1f}x)", flush=True)
+        results[name].update(frame_ms=frame[0], frame_bound_ms=frame[1])
     del sparse_calls, a
     torch.cuda.empty_cache()
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -72,11 +72,11 @@ SIGNATURES = {
     "fl_sparse_flags": [_P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
     # bmin, bmax, nb, ox, oy, oz, dx, dy, dz, max_len, n, key, stream
     "fl_sparse_key": [_P, _P, _I] + [_P] * 7 + [_I, _P, _P],
-    # w4, tp, tlist, tms, counts, wt, ox, oy, oz, dx, dy, dz, max_len, edge,
+    # rec, tlist, tms, counts, wt, ox, oy, oz, dx, dy, dz, max_len, edge,
     # ray_tile, n, s, u, v, tri, stream
-    "fl_sparse_closest": [_P, _I, _P, _P, _P, _I] + [_P] * 7 + [_F, _I, _I] + [_P] * 4 + [_P],
-    # w4, tp, tlist, counts, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, n, hit, stream
-    "fl_sparse_any": [_P, _I, _P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
+    "fl_sparse_closest": [_P, _P, _P, _P, _I] + [_P] * 7 + [_F, _I, _I] + [_P] * 4 + [_P],
+    # rec, tlist, counts, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, n, hit, stream
+    "fl_sparse_any": [_P, _P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
     # state, req, tex, ndc, lights, n_lights, cam, seed, cos_sample_n, bounce,
     # counter, n, stream
     "fl_shade": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _P],

@@ -6,7 +6,10 @@
 // blockDim.x wherever it cooperates inside a block.
 // That lets the same sources compile for the host (-DFL_EMULATE, see
 // _native.build_library): each thread then runs in turn as a block of one,
-// __syncthreads() is a no-op, and the C entry points take host pointers.
+// __syncthreads() is a no-op, a warp vote is its own predicate, a warp
+// shuffle returns the thread's own value, an asynchronous copy to shared
+// memory is a plain copy and waiting for one is a no-op, and the C entry
+// points take host pointers.
 // The CPU tests use that build to hold the kernels' arithmetic against
 // their plain PyTorch versions.
 #pragma once
@@ -27,6 +30,12 @@ static thread_local fl_dim3 threadIdx, blockIdx, blockDim, gridDim;
 static inline void __syncthreads() {}
 static inline int __syncthreads_and(int p) { return p; }
 static inline int __syncthreads_or(int p) { return p; }
+static inline int __any_sync(unsigned, int p) { return p; }
+template <typename T> static inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+struct alignas(16) float4 { float x, y, z, w; };
+static inline void fl_cp_async16(float4* dst, const float4* src) { *dst = *src; }
+static inline void fl_cp_async_commit() {}
+template <int N> static inline void fl_cp_async_wait() {}
 #define FL_LAUNCH(kernel, n_items, block, stream, ...)                  \
     do {                                                                 \
         (void)(stream);                                                  \
@@ -75,6 +84,25 @@ static thread_local float* fl_dyn_shared;
         kernel<<<(unsigned)(n_blocks), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__); \
         return (int)cudaGetLastError();                                  \
     } while (0)
+
+// 16 bytes from device memory to shared memory without the registers
+// (cp.async, Ampere and later: both addresses 16-byte aligned); a thread's
+// copies since its last commit form one group, and
+// fl_cp_async_wait<N>() returns once at most N of its groups are still in
+// flight. Other threads see the data after a barrier that follows the wait.
+__device__ __forceinline__ void fl_cp_async16(float4* dst, const float4* src) {
+    unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void fl_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fl_cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 #define FL_SHARED_FLOATS(name) extern __shared__ float name[]
 #define FL_LAUNCH_BLOCKS_SHARED(kernel, n_blocks, block, floats, stream, ...) \

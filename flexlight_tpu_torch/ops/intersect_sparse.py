@@ -3,7 +3,20 @@
 code around kernels 6-9 (ops.intersect_sparse_kernel, csrc/sparse.cu).
 
 The triangles are cut into 128-triangle tiles in drawable (id_buffer)
-order, each with two 64-triangle cluster boxes. One cast is:
+order, each with two 64-triangle cluster boxes. The casts read each
+triangle as a 16-float record (`tri_record`, 64 B; a tile is 8 KB): the
+16 distinct magnitudes of the four Moeller-Trumbore rows of
+ops.intersect_kernel.tri_rows, which hold 25 non-zero terms of 64:
+
+    [0:3]  n = e1 x e2      (det row: -n on d; sdet row: n on o)
+    [3]    v0 . n           (sdet row: -v0.n on the constant 1)
+    [4:7]  e2 x v0          (udet row: -(e2 x v0) on d)
+    [7:10] v0 x e1          (vdet row: -(v0 x e1) on d)
+    [10:13] e2              (udet row: skew(e2) on vec(d (x) o))
+    [13:16] e1              (vdet row: -skew(e1) on vec(d (x) o))
+
+with e1 = v1 - v0, e2 = v2 - v0; a padding triangle's record is all
+zeros (det = 0 rejects it). One cast is:
 1. for a hinted cast (a shadow or bounce ray of the bounce loop, on a
    scene of at least SORT_MIN_TILES tiles), the nearest2 sort key
    (`sparse_key`) and a stable sort of the wavefront by it, so that rays
@@ -32,26 +45,27 @@ import torch
 import torch.nn.functional as F
 
 from .intersect import BIAS, POW32
-from .intersect_kernel import tri_rows
+from .intersect_kernel import _cross
 
 TRI_TILE = 128
 CLUSTER = 64
 SUPER_GROUP = 8          # cluster boxes per supertile box of the nearest2 key
 RAY_TILE = 128
 SORT_MIN_TILES = 8       # flexlight_tpu/ops/pathtrace.py:973
+REC = 16                 # floats of a triangle record
 
 
 class SparseScene(NamedTuple):
     """What the sparse casts of one frame read."""
-    w4: torch.Tensor     # [4, Tp, 16] f32 MT rows in drawable order, zero rows past T
-    amin: torch.Tensor   # [Tp / 64, 3] cluster boxes
+    rec: torch.Tensor    # [WT, 128, 16] f32 triangle records in drawable order, zeros past T
+    amin: torch.Tensor   # [WT * 2, 3] cluster boxes
     amax: torch.Tensor
-    bmin: torch.Tensor   # [ceil(Tp / 512), 3] supertile boxes
+    bmin: torch.Tensor   # [ceil(WT / 4), 3] supertile boxes
     bmax: torch.Tensor
 
     @property
     def n_tiles(self) -> int:
-        return self.w4.shape[1] // TRI_TILE
+        return self.rec.shape[0]
 
 
 def _super_boxes(amin, amax, group: int = SUPER_GROUP):
@@ -63,20 +77,33 @@ def _super_boxes(amin, amax, group: int = SUPER_GROUP):
     return bmin.contiguous(), bmax.contiguous()
 
 
-def build_w4_tiled(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> SparseScene:
-    """The MT rows of ops.intersect_kernel.tri_rows padded to whole tiles
-    with zero rows (det = 0 rejects them), the cluster boxes (a padded
-    triangle's box is empty: +inf min, -inf max) and the supertile boxes."""
+def tri_record(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> torch.Tensor:
+    """[T, 16] f32: each drawable triangle's record (module docstring),
+    every value computed as ops.intersect_kernel.tri_rows computes it."""
+    tris = world_geom[id_buffer.long()]
+    v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = _cross(e1, e2)
+    v0n = v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2]
+    return torch.cat([n, v0n[:, None], _cross(e2, v0), _cross(v0, e1), e2, e1], dim=-1)
+
+
+def build_tiled(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> SparseScene:
+    """The triangle records in whole tiles, padded with zero records (det =
+    0 rejects them), the cluster boxes (a padded triangle's box is empty:
+    +inf min, -inf max) and the supertile boxes."""
     t = id_buffer.shape[0]
     tp = -(-t // TRI_TILE) * TRI_TILE
-    w4 = torch.stack([F.pad(r, (0, 0, 0, tp - t)) for r in tri_rows(world_geom, id_buffer)])
+    rec = F.pad(tri_record(world_geom, id_buffer), (0, 0, 0, tp - t))
     verts = world_geom[id_buffer.long()][:, 0:9].reshape(t, 3, 3)
     vmin = F.pad(verts.amin(dim=1), (0, 0, 0, tp - t), value=float("inf"))
     vmax = F.pad(verts.amax(dim=1), (0, 0, 0, tp - t), value=float("-inf"))
     k = tp // CLUSTER
     amin = vmin.reshape(k, CLUSTER, 3).amin(dim=1).contiguous()
     amax = vmax.reshape(k, CLUSTER, 3).amax(dim=1).contiguous()
-    return SparseScene(w4.contiguous(), amin, amax, *_super_boxes(amin, amax))
+    return SparseScene(rec.reshape(tp // TRI_TILE, TRI_TILE, REC).contiguous(), amin, amax,
+                       *_super_boxes(amin, amax))
 
 
 def _prep_soa(o3, d3, max_len, ray_tile: int):
@@ -152,7 +179,7 @@ def traverse_sparse_soa(scene: SparseScene, o3, d3, alive=None, edge: float = BI
     if sort_rays:
         perm, o3, d3, max_len = _sorted(scene, o3, d3, max_len, kernels)
     o3, d3, ml, n, tlist, tms, counts = _worklists(scene, o3, d3, max_len, ray_tile, kernels)
-    s, u, v, tri = kernels.sparse_closest(scene.w4, tlist, tms, counts, o3, d3, ml, edge,
+    s, u, v, tri = kernels.sparse_closest(scene.rec, tlist, tms, counts, o3, d3, ml, edge,
                                           ray_tile)
     s, u, v, tri = s[:n], u[:n], v[:n], tri[:n]
     if sort_rays:
@@ -171,7 +198,7 @@ def shadow_sparse_soa(scene: SparseScene, o3, d3, max_len, alive=None,
     if sort_rays:
         perm, o3, d3, max_len = _sorted(scene, o3, d3, max_len, kernels)
     o3, d3, ml, n, tlist, _, counts = _worklists(scene, o3, d3, max_len, ray_tile, kernels)
-    hit = kernels.sparse_any(scene.w4, tlist, counts, o3, d3, ml, ray_tile)[:n]
+    hit = kernels.sparse_any(scene.rec, tlist, counts, o3, d3, ml, ray_tile)[:n]
     if sort_rays:
         (hit,) = _carry_unsort(perm, (hit,))
     return hit

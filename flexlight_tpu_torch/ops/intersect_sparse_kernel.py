@@ -9,14 +9,22 @@ their scheduling:
   two 64-triangle cluster boxes, POW32 where no ray enters one;
 - `nearest2_key_plain` is its `_nearest2_key_xla` on the supertile boxes;
 - `closest_plain` / `any_plain` evaluate every tile of a ray tile's
-  worklist for every ray of the tile (the Moeller-Trumbore products of
-  ops.intersect_kernel, 16 rank-1 updates in k order), in ascending tile
-  order, so `argmin`'s first minimum is the lowest drawable index.
-The closest-hit kernel walks the worklist in entry order instead and
-leaves once no live ray's best hit can reach the next tile's entry bound
-(with flexlight_tpu's guard band, `_EXIT_REL` / `_EXIT_ABS`); it keeps
-the lexicographic minimum (s, drawable index), so both sides pick the same
-triangle. The any-hit kernel leaves once every live ray is occluded.
+  worklist for every ray of the tile, in ascending tile order, so
+  `argmin`'s first minimum is the lowest drawable index. They read the
+  triangle records of ops.intersect_sparse (`rec`, [WT, 128, 16]) and form
+  the four Moeller-Trumbore products from their non-zero terms only
+  (`record_products`): the terms of ops.intersect_kernel's 16 rank-1
+  updates in k order, with their signs as exact negations. Where a partial
+  sum is non-zero, adding an exact zero product leaves it unchanged, so
+  the products equal `_mt_products`' (a zero may differ in sign).
+The kernels walk the worklist in entry order instead, each warp on its
+own: a ray is done once its best hit cannot reach the next tile's entry
+bound (flexlight_tpu's guard band, `_EXIT_REL` / `_EXIT_ABS`), or once it
+is occluded (any hit). The closest hit keeps the lexicographic minimum
+(s, drawable index), so both sides pick the same triangle. Before the
+division the kernels reject pairs only where the accept window rejects
+them too (csrc/sparse.cu), so every accepted pair has the plain version's
+s, u and v.
 
 Rays come as SoA channels padded to whole ray tiles, directions already
 through `intersect_sparse._prep_soa`. Triangle indices are drawable
@@ -28,12 +36,14 @@ import torch
 
 from .. import _native
 from .intersect import BIAS, POW32
-from .intersect_kernel import _ray_args, ray_features
-from .intersect_sparse import CLUSTER, TRI_TILE
+from .intersect_kernel import _ray_args
+from .intersect_sparse import CLUSTER, REC, TRI_TILE
 
 CLUSTERS_PER_TILE = TRI_TILE // CLUSTER
 TINY_DIR = 1e-30         # a zero direction component in the slab test
-MAX_RAY_TILE = 1024      # the casts' block is one ray tile, at most 1024 threads
+MAX_RAY_TILE = 1024      # rays of a ray tile (the flags keep a tile's rays in shared memory)
+CAST_LANES = 8           # threads per ray of the casts (csrc/sparse.cu FL_SUB_LANES), whose
+                         # block is one ray tile: at most 1024 threads
 DEAD_KEY = 1 << 30
 # the closest-hit kernel's exit guard band (csrc/sparse.cu FL_EXIT_REL /
 # FL_EXIT_ABS, flexlight_tpu/ops/intersect_sparse.py:602-603): it leaves the
@@ -110,22 +120,40 @@ def nearest2_key_plain(bmin, bmax, o3, d3, max_len):
     return torch.cat(keys)
 
 
-def _worklist_products(w4, tlist, counts, o3, d3, ray_tile: int):
+def record_products(q, o, d):
+    """(det, udet, vdet, sdet) from the 16 record columns `q` and the ray's
+    origin and direction components `o`, `d` (3 each), all broadcast
+    together: the non-zero terms of ops.intersect_kernel.tri_rows in
+    ascending k, each negated term an exact negation or subtraction, in
+    the kernel's order (csrc/sparse.cu fl_rec_*)."""
+    n0, n1, n2, v0n, c0, c1, c2, g0, g1, g2, e2x, e2y, e2z, e1x, e1y, e1z = q
+    # vec(d (x) o) at k = 8, 9, 10, 12, 13, 14 (k = 7, 11, 15 meet zeros)
+    f8, f9, f10 = d[0] * o[1], d[0] * o[2], d[1] * o[0]
+    f12, f13, f14 = d[1] * o[2], d[2] * o[0], d[2] * o[1]
+    det = -((n0 * d[0] + n1 * d[1]) + n2 * d[2])
+    sdet = ((n0 * o[0] - v0n) + n1 * o[1]) + n2 * o[2]
+    udet = (-((c0 * d[0] + c1 * d[1]) + c2 * d[2]) - e2z * f8 + e2y * f9 + e2z * f10
+            - e2x * f12 - e2y * f13 + e2x * f14)
+    vdet = (-((g0 * d[0] + g1 * d[1]) + g2 * d[2]) + e1z * f8 - e1y * f9 - e1z * f10
+            + e1x * f12 + e1y * f13 - e1x * f14)
+    return det, udet, vdet, sdet
+
+
+def _worklist_products(rec, tlist, counts, o3, d3, ray_tile: int):
     """Per chunk of ray tiles: (first ray, candidate tiles [G, C] in
     ascending order padded with an all-zero tile, det, udet, vdet, sdet
     each [G, R, C * TRI_TILE]), the products of every ray of a ray tile
-    with every triangle of its worklist, in k order."""
-    wt = w4.shape[1] // TRI_TILE
+    with every triangle of its worklist."""
+    wt = rec.shape[0]
     rt = counts.shape[0]
-    dev = w4.device
-    # [WT + 1, TRI_TILE, 4, 16]: the tiles, plus a zero tile (det = 0 rejects it)
-    tiles = torch.cat([w4.reshape(4, wt, TRI_TILE, 16),
-                       torch.zeros((4, 1, TRI_TILE, 16), dtype=w4.dtype, device=dev)], dim=1)
-    tiles = tiles.permute(1, 2, 0, 3)
+    dev = rec.device
+    # [WT + 1, TRI_TILE, 16]: the tiles, plus a zero tile (det = 0 rejects it)
+    tiles = torch.cat([rec, torch.zeros((1, TRI_TILE, REC), dtype=rec.dtype, device=dev)])
     slot = torch.arange(tlist.shape[1], device=dev)
     cand_all = torch.where(slot[None] < counts[:, None].long(), tlist.long(), wt)
     cand_all = cand_all.sort(dim=1).values
-    f = ray_features(o3, d3).reshape(rt, ray_tile, 16)
+    o = [c.reshape(rt, ray_tile, 1) for c in o3]
+    d = [c.reshape(rt, ray_tile, 1) for c in d3]
     per_tile = [int(c) for c in counts.tolist()]
     g0 = 0
     while g0 < rt:
@@ -137,17 +165,14 @@ def _worklist_products(w4, tlist, counts, o3, d3, ray_tile: int):
                 break
             g1, cmax = g1 + 1, c
         cand = cand_all[g0:g1, :cmax]
-        wk = tiles[cand].reshape(g1 - g0, cmax * TRI_TILE * 4, 16).transpose(1, 2)  # [G, 16, M]
-        fg = f[g0:g1]
-        prod = fg[:, :, 0, None] * wk[:, None, 0]
-        for k in range(1, 16):
-            prod = prod + fg[:, :, k, None] * wk[:, None, k]
-        prod = prod.reshape(g1 - g0, ray_tile, cmax * TRI_TILE, 4)
-        yield g0, cand, prod[..., 0], prod[..., 1], prod[..., 2], prod[..., 3]
+        wk = tiles[cand].reshape(g1 - g0, 1, cmax * TRI_TILE, REC)     # [G, 1, M, 16]
+        q = [wk[..., k] for k in range(REC)]
+        prod = record_products(q, [c[g0:g1] for c in o], [c[g0:g1] for c in d])
+        yield (g0, cand) + prod
         g0 = g1
 
 
-def closest_plain(w4, tlist, tms, counts, o3, d3, max_len, edge: float, ray_tile: int):
+def closest_plain(rec, tlist, tms, counts, o3, d3, max_len, edge: float, ray_tile: int):
     """Closest hit of each ray over its ray tile's worklist (`tlist[rt,
     :counts[rt]]`; `tms`, the entry bounds, only order the kernel's walk).
     Returns (s, u, v, tri): [N] f32 (0 on a miss) and drawable index [N]
@@ -156,7 +181,7 @@ def closest_plain(w4, tlist, tms, counts, o3, d3, max_len, edge: float, ray_tile
     s_out = torch.zeros(n, dtype=torch.float32, device=max_len.device)
     u_out, v_out = torch.zeros_like(s_out), torch.zeros_like(s_out)
     tri_out = torch.full((n,), -1, dtype=torch.int32, device=max_len.device)
-    for g0, cand, det, udet, vdet, sdet in _worklist_products(w4, tlist, counts, o3, d3,
+    for g0, cand, det, udet, vdet, sdet in _worklist_products(rec, tlist, counts, o3, d3,
                                                                ray_tile):
         g = cand.shape[0]
         a, b = g0 * ray_tile, (g0 + g) * ray_tile
@@ -185,12 +210,12 @@ def closest_plain(w4, tlist, tms, counts, o3, d3, max_len, edge: float, ray_tile
     return s_out, u_out, v_out, tri_out
 
 
-def any_plain(w4, tlist, counts, o3, d3, max_len, ray_tile: int):
+def any_plain(rec, tlist, counts, o3, d3, max_len, ray_tile: int):
     """Front-face-culled any hit within max_len over the worklists
     (glsl:143-158). Returns bool [N]."""
     n = max_len.shape[0]
     out = torch.zeros(n, dtype=torch.bool, device=max_len.device)
-    for g0, cand, det, udet, vdet, sdet in _worklist_products(w4, tlist, counts, o3, d3,
+    for g0, cand, det, udet, vdet, sdet in _worklist_products(rec, tlist, counts, o3, d3,
                                                                ray_tile):
         g = cand.shape[0]
         a, b = g0 * ray_tile, (g0 + g) * ray_tile
@@ -207,10 +232,10 @@ def any_plain(w4, tlist, counts, o3, d3, max_len, ray_tile: int):
     return out
 
 
-def _tiles_of(n: int, ray_tile: int) -> int:
-    if not 0 < ray_tile <= MAX_RAY_TILE or n % ray_tile:
+def _tiles_of(n: int, ray_tile: int, most: int = MAX_RAY_TILE) -> int:
+    if not 0 < ray_tile <= most or n % ray_tile:
         raise ValueError(f"{n} rays do not make whole ray tiles of {ray_tile} "
-                         f"(at most {MAX_RAY_TILE})")
+                         f"(at most {most})")
     return n // ray_tile
 
 
@@ -221,15 +246,14 @@ def _boxes(lo, hi, name, dev):
     return k
 
 
-def _worklist_args(w4, tlist, counts, rt, dev):
-    tp = w4.shape[1]
-    if tp % TRI_TILE:
-        raise ValueError(f"w4: {tp} rows are not whole tiles of {TRI_TILE}")
-    wt = tp // TRI_TILE
-    _native.require(w4, "w4", torch.float32, (4, tp, 16), dev)
+def _worklist_args(rec, tlist, counts, rt, dev):
+    wt = rec.shape[0]
+    _native.require(rec, "rec", torch.float32, (wt, TRI_TILE, REC), dev)
+    if _native.ptr(rec) % 16:
+        raise ValueError("rec: the kernels copy it in 16-byte pieces; it must be 16-byte aligned")
     _native.require(tlist, "tlist", torch.int32, (rt, wt), dev)
     _native.require(counts, "counts", torch.int32, (rt,), dev)
-    return tp, wt
+    return wt
 
 
 def _flags_launch(lib, stream, amin, amax, o3, d3, max_len, ray_tile: int):
@@ -255,30 +279,30 @@ def _key_launch(lib, stream, bmin, bmax, o3, d3, max_len):
     return key
 
 
-def _closest_launch(lib, stream, w4, tlist, tms, counts, o3, d3, max_len, edge: float,
+def _closest_launch(lib, stream, rec, tlist, tms, counts, o3, d3, max_len, edge: float,
                     ray_tile: int):
     dev = max_len.device
     n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
-    rt = _tiles_of(n, ray_tile)
-    tp, wt = _worklist_args(w4, tlist, counts, rt, dev)
+    rt = _tiles_of(n, ray_tile, MAX_RAY_TILE // CAST_LANES)
+    wt = _worklist_args(rec, tlist, counts, rt, dev)
     _native.require(tms, "tms", torch.float32, (rt, wt), dev)
     s = torch.empty(n, dtype=torch.float32, device=dev)
     u, v = torch.empty_like(s), torch.empty_like(s)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _native.check(lib.fl_sparse_closest(
-        _native.ptr(w4), tp, _native.ptr(tlist), _native.ptr(tms), _native.ptr(counts), wt,
+        _native.ptr(rec), _native.ptr(tlist), _native.ptr(tms), _native.ptr(counts), wt,
         *ray_ptrs, float(edge), ray_tile, n, _native.ptr(s), _native.ptr(u), _native.ptr(v),
         _native.ptr(tri), stream), "sparse_closest")
     return s, u, v, tri
 
 
-def _any_launch(lib, stream, w4, tlist, counts, o3, d3, max_len, ray_tile: int):
+def _any_launch(lib, stream, rec, tlist, counts, o3, d3, max_len, ray_tile: int):
     dev = max_len.device
     n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
-    rt = _tiles_of(n, ray_tile)
-    tp, wt = _worklist_args(w4, tlist, counts, rt, dev)
+    rt = _tiles_of(n, ray_tile, MAX_RAY_TILE // CAST_LANES)
+    wt = _worklist_args(rec, tlist, counts, rt, dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
-    _native.check(lib.fl_sparse_any(_native.ptr(w4), tp, _native.ptr(tlist),
+    _native.check(lib.fl_sparse_any(_native.ptr(rec), _native.ptr(tlist),
                                     _native.ptr(counts), wt, *ray_ptrs, ray_tile, n,
                                     _native.ptr(hit), stream), "sparse_any")
     return hit

@@ -552,7 +552,7 @@ def _casts(scheme: str, buffers: SceneBuffers, world_geom, kernels):
     if scheme == "sparse":
         from . import intersect_sparse as isp
 
-        scene = isp.build_w4_tiled(world_geom, buffers.id_buffer)
+        scene = isp.build_tiled(world_geom, buffers.id_buffer)
         sort = scene.n_tiles >= isp.SORT_MIN_TILES
 
         def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):

@@ -149,6 +149,35 @@ def test_sparse_kernel_matches_plain_on_the_card(sparse_frame, name):
         assert torch.equal(a, b)
 
 
+def test_sparse_walk_with_a_mixed_ray_tile_matches_plain_on_the_card(dev):
+    """The worklist casts on `walk_scene`'s ray tiles: in ray tile 0 the
+    warps of rays 0-63 are done after slot 0 while those of rays 64-127 run
+    to the end of 6 slots (longer than the tile ring); worklists of one
+    tile and of none."""
+    from flexlight_tpu_torch.ops import intersect_sparse as S
+    from flexlight_tpu_torch.ops import intersect_sparse_kernel as K
+    from flexlight_tpu_torch.ops.intersect import BIAS
+    # by the name pytest collects it under (its rootdir insertion puts tests/
+    # on the path); `tests.` would resolve to any `tests` package installed
+    # in site-packages first
+    from test_torch_sparse_record import walk_scene
+
+    ws, wo3, wd3, wml, wlen = walk_scene(device=dev)
+    for max_len, edge in ((wml, -BIAS), (wml, BIAS), (wlen, None)):
+        o3, d3, ml, _ = S._prep_soa(wo3, wd3, max_len, 128)
+        tlist, tms, counts = S._compact(K.flags_plain(ws.amin, ws.amax, o3, d3, ml, 128))
+        assert counts.tolist() == [6, 1, 0, 0]
+        if edge is None:
+            hit = K.sparse_any(ws.rec, tlist, counts, o3, d3, ml, 128)
+            assert hit.is_cuda and torch.equal(hit, K.any_plain(ws.rec, tlist, counts, o3, d3,
+                                                                ml, 128))
+            continue
+        got = K.sparse_closest(ws.rec, tlist, tms, counts, o3, d3, ml, edge, 128)
+        ref = K.closest_plain(ws.rec, tlist, tms, counts, o3, d3, ml, edge, 128)
+        assert got[0].is_cuda and all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert (ref[3][:64] >= 0).eq(ml[:64] > 0).all() and (ref[3][64:128] == -1).all()
+
+
 def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, dev):
     from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
 

@@ -36,7 +36,7 @@ from flexlight_tpu.ops import buffers as jbuf  # noqa: E402
 from flexlight_tpu.ops.pathtrace import render_mrt as jrender  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
 from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, PathTracer  # noqa: E402
-from flexlight_tpu_torch.ops import intersect_sparse as IS  # noqa: E402
+from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import shade as S  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
@@ -126,8 +126,7 @@ def test_shade_kernel_frame_matches_flexlight_tpu(mesh_obj, monkeypatch, name, s
             np.testing.assert_allclose(getattr(got, ch).numpy(), np.asarray(getattr(ref, ch)),
                                        atol=1e-5, rtol=0, err_msg=ch)
         return
-    sc = IS.build_w4_tiled(world_geometry(tb), tb.id_buffer)
-    w4 = sc.w4[:, :tb.id_buffer.shape[0]]
+    w4 = IK.build_w4(world_geometry(tb), tb.id_buffer)[0]
     tie = torch.zeros(size * size, dtype=torch.bool)
     for o3, d3, ml, edge, any_hit in casts:
         tie |= tie_rays(w4, o3, d3, ml, edge, any_hit)

@@ -35,6 +35,7 @@ from flexlight_tpu_torch.ops import intersect_sparse as S  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_sparse_kernel as K  # noqa: E402
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
 from flexlight_tpu_torch.scenes import stand_in_mesh  # noqa: E402
+from test_torch_sparse_record import RING, walk_scene  # noqa: E402  (as pytest collects it)
 
 ULP = 2.0 ** -24
 TIE_ULPS = 16        # rounding margin of a decision, in units of `rounding`
@@ -117,7 +118,8 @@ def mesh():
     o = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return dict(t=t, port=S.build_w4_tiled(torch.from_numpy(wg), torch.from_numpy(ids)),
+    return dict(t=t, port=S.build_tiled(torch.from_numpy(wg), torch.from_numpy(ids)),
+                w4=IK.build_w4(torch.from_numpy(wg), torch.from_numpy(ids))[0],
                 jax=J.build_w4_tiled(jnp.asarray(wg), jnp.asarray(ids)),
                 o=o, d=d, alive=rng.uniform(size=n) < 0.8,
                 length=rng.uniform(0, 8, n).astype(np.float32))
@@ -182,7 +184,7 @@ def test_closest_hit_matches_jax(mesh, cast):
     got = S.traverse_sparse_soa(mesh["port"], _t3(o), _t3(d), alive=torch.from_numpy(alive),
                                 edge=edge, sort_rays=sort)
     ml = torch.from_numpy(np.where(alive, POW32, 0.0).astype(np.float32))
-    w4 = mesh["port"].w4[:, :mesh["t"]]
+    w4 = mesh["w4"]
     ties = tie_rays(w4, _t3(o), _t3(d), ml, edge, any_hit=False).numpy()
     tri, rtri = got[3].numpy(), np.asarray(ref[3])
     diff = tri != rtri
@@ -216,7 +218,7 @@ def test_any_hit_matches_jax(mesh):
     got = S.shadow_sparse_soa(mesh["port"], _t3(o), _t3(d), torch.from_numpy(length),
                               alive=torch.from_numpy(alive), sort_rays=True).numpy()
     ml = torch.from_numpy(np.where(alive, length, 0.0).astype(np.float32))
-    ties = tie_rays(mesh["port"].w4[:, :mesh["t"]], _t3(o), _t3(d), ml, BIAS,
+    ties = tie_rays(mesh["w4"], _t3(o), _t3(d), ml, BIAS,
                     any_hit=True).numpy()
     diff = got != ref
     print(f"shadow: {int(got.sum())} hits, {int(diff.sum())} rays differ, "
@@ -243,7 +245,10 @@ def test_sort_and_ray_tile_do_not_change_results(mesh):
 def test_emulated_kernels_are_bit_exact(mesh, tmp_path):
     """csrc/sparse.cu built for the host, launched through the wrappers'
     launch code: each of the four kernels identical to its plain version
-    (the key over 300 supertile boxes: two of the kernel's box chunks)."""
+    (the key over 300 supertile boxes: two of the kernel's box chunks); the
+    casts also on `walk_scene`'s ray tiles: one whose rays 0-63 finish at
+    slot 0 while rays 64-127 run to the end of a worklist longer than the
+    ring, and worklists of one tile and of none."""
     lib = _native.build_library(tmp_path, emulate=True)
     sc = mesh["port"]
     o, d, ml = _rays(25, 1024, spread=5.0, dead=0.2)
@@ -253,11 +258,28 @@ def test_emulated_kernels_are_bit_exact(mesh, tmp_path):
         flags = K.flags_plain(sc.amin, sc.amax, o3, d3, mlp, 128)
         assert torch.equal(K._flags_launch(lib, 0, sc.amin, sc.amax, o3, d3, mlp, 128), flags)
         tlist, tms, counts = S._compact(flags)
-        got = K._closest_launch(lib, 0, sc.w4, tlist, tms, counts, o3, d3, mlp, edge, 128)
-        ref = K.closest_plain(sc.w4, tlist, tms, counts, o3, d3, mlp, edge, 128)
+        got = K._closest_launch(lib, 0, sc.rec, tlist, tms, counts, o3, d3, mlp, edge, 128)
+        ref = K.closest_plain(sc.rec, tlist, tms, counts, o3, d3, mlp, edge, 128)
         assert all(torch.equal(a, b) for a, b in zip(got, ref)) and (ref[3] >= 0).any()
-        hit = K._any_launch(lib, 0, sc.w4, tlist, counts, o3, d3, mlp, 128)
-        assert torch.equal(hit, K.any_plain(sc.w4, tlist, counts, o3, d3, mlp, 128))
+        hit = K._any_launch(lib, 0, sc.rec, tlist, counts, o3, d3, mlp, 128)
+        assert torch.equal(hit, K.any_plain(sc.rec, tlist, counts, o3, d3, mlp, 128))
+    ws, wo3, wd3, wml, wlen = walk_scene()
+    for max_len, edge in ((wml, -BIAS), (wml, BIAS), (wlen, None)):
+        o3, d3, mlp, _ = S._prep_soa(wo3, wd3, max_len, 128)
+        tlist, tms, counts = S._compact(K.flags_plain(ws.amin, ws.amax, o3, d3, mlp, 128))
+        assert counts.tolist() == [6, 1, 0, 0] and counts.max() > RING
+        if edge is None:
+            hit = K._any_launch(lib, 0, ws.rec, tlist, counts, o3, d3, mlp, 128)
+            assert torch.equal(hit, K.any_plain(ws.rec, tlist, counts, o3, d3, mlp, 128))
+            assert hit[32:64].all() and not hit[:32].any() and not hit[64:128].any()
+            continue
+        got = K._closest_launch(lib, 0, ws.rec, tlist, tms, counts, o3, d3, mlp, edge, 128)
+        ref = K.closest_plain(ws.rec, tlist, tms, counts, o3, d3, mlp, edge, 128)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        live = mlp[:128] > 0
+        # rays 0-63 are done after slot 0, rays 64-127 find nothing
+        assert (ref[3][:64] >= 0).eq(live[:64]).all() and (ref[3][64:128] == -1).all()
+        assert float(ref[0][:64].max()) * K.EXIT_REL + K.EXIT_ABS < float(tms[0, 1])
     bmin, bmax = (torch.from_numpy(b) for b in _boxes(26, 300))
     o, d, ml = _rays(27, 700)
     assert torch.equal(K._key_launch(lib, 0, bmin, bmax, _t3(o), _t3(d), torch.from_numpy(ml)),

@@ -25,6 +25,7 @@ from flexlight_tpu.scene import transform as jtransform  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
 from flexlight_tpu_torch.models.pathtracer import PathTracer  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
+from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_sparse as S  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry  # noqa: E402
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
@@ -110,8 +111,7 @@ def test_render_mrt_sparse_matches_jax(mesh_obj, monkeypatch):
         np.testing.assert_allclose(getattr(got, ch).numpy(), np.asarray(getattr(ref, ch)),
                                    atol=1e-5, rtol=0, err_msg=ch)
     assert got.alpha.numpy().mean() > 0.5 and got.glass.numpy().max() > 0
-    scene = S.build_w4_tiled(world_geometry(tb), tb.id_buffer)
-    w4 = scene.w4[:, :tb.id_buffer.shape[0]]
+    w4 = IK.build_w4(world_geometry(tb), tb.id_buffer)[0]
     tie = torch.zeros(W * H, dtype=torch.bool)
     for o3, d3, ml, edge, any_hit in casts:
         tie |= tie_rays(w4, o3, d3, ml, edge, any_hit)
