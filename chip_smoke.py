@@ -18,11 +18,14 @@ Phases, one line each (any failure exits non-zero):
      FXAA on the packed planes and the FXAA input of the frame; and the
      four worklist kernels of scheme="sparse" (tile flags, nearest2 key,
      closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
-     frame with shade_kernel=True: its primary cast, its first shadow cast
-     and its first bounce cast (closest hit and any hit also timed on every
-     cast of the frame, 5 + 5, against their summed bound, with the
-     ray-triangle tests their warp walk issues beside those the bound
-     counts), and the interp_shade kernel on the state of each of its 5
+     frame with shade_kernel=True: the flags and the key on every call of
+     the frame (10 and 9, each against its plain version, with the share
+     of (ray, cluster) pairs the flags' interval cull skips and the
+     per-frame sums of time and bound), closest hit and any hit on its
+     primary cast, its first shadow cast and its first bounce cast (and
+     timed on every cast of the frame, 5 + 5, against their summed bound,
+     with the ray-triangle tests their warp walk issues beside those the
+     bound counts), and the interp_shade kernel on the state of each of its 5
      bounces; and the whole-frame kernel of scheme="fused"
      (fused_frame) on wave's 1080p camera rays at 2 spp, 5 bounces. Each
      kernel takes the same operations in the same order as its plain
@@ -68,10 +71,11 @@ Phases, one line each (any failure exits non-zero):
      above; one frame's MRT on scheme="fused" must be identical to the
      same frame's on scheme="fused_split" (both through the kernels), and
      the CUDA-event time of both MRT passes is printed.
-Then one JSON line per the kernels (the worklist closest and any hits' ms
-and bound_ms are those of their first compared cast, frame_ms and
-frame_bound_ms the sums over the frame's casts), the card's name and power
-limit, and a last line {"ok": true, "device": {...}}.
+Then one JSON line per the kernels (the four worklist kernels' ms and
+bound_ms are those of their first compared call, frame_ms and
+frame_bound_ms the sums over the frame's calls; the flags add
+frame_all_pairs_bound_ms, the bound of testing every live pair), the
+card's name and power limit, and a last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -141,17 +145,27 @@ STEP_WORDS = (28, 46)
 MAT_C = 49
 OPS_DISC_TAP = {"first_blur": 4, "second_blur": 10, "final_blur": 10}  # what every tap runs
 OPS_FXAA_PIXEL = 39      # fxaa.cu: the 3x3 luma test every pixel runs
-# sparse.cu: one slab test of a ray against a box (fl_slab) is per axis two
-# subtracts, two multiplies, a min and a max, and two to fold the axes in
-# (the first axis folds none): 22; a tile flag adds entry = max(tmin, BIAS),
-# the two hit compares and the running minimum; a key box the same with the
-# best-two compare. Per ray: 1 / d with its zero test (6); the key adds the
-# octant and the dead test (4). Dead rays need none of it.
+# sparse.cu: one slab test of a ray against a box (fl_slab_entry) is per
+# axis two subtracts, two multiplies, a min and a max, and two to fold the
+# axes in (the first axis folds none): 22; a tile flag adds entry =
+# max(tmin, BIAS), the two hit compares and the running minimum; a key box
+# entry, the two hit compares and the best two's two compares. Per ray:
+# 1 / d with its zero test (6); the flags add the live test and the ray
+# tile's span (12 min / max of origin and 1 / d, the largest max_len); the
+# key the dead and live tests and the octant. Per (live ray tile,
+# cluster): the flags' interval cull (fl_cull: per axis 4 subtracts, 8
+# multiplies, 14 min / max; the folds, entry_lo and 2 compares), and, for a
+# tile's second cluster that survives it, the compare with the first's
+# minimum. Dead rays need none of it.
 OPS_SLAB = 22
 OPS_FLAG = OPS_SLAB + 4
-OPS_KEY_BOX = OPS_SLAB + 4
+OPS_KEY_BOX = OPS_SLAB + 5
 OPS_INV_DIR = 6
-OPS_KEY_RAY = OPS_INV_DIR + 4
+OPS_FLAGS_RAY = OPS_INV_DIR + 1 + 13
+OPS_KEY_RAY = OPS_INV_DIR + 2 + 3
+OPS_CULL = 85
+OPS_SKIP = 1
+KEY_RAYS, KEY_BLOCK_RAYS = 2, 512   # sparse.cu: rays a thread and a block of the key hold
 # sparse.cu's worklist casts test a 16-float triangle record and stop at the
 # first exact reject that takes the pair, so each pair the bound needs
 # counts the operations its own test reaches: det (3 multiplies, 2 adds)
@@ -213,6 +227,45 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flags_cull(amin, amax, o3, d3, max_len, ray_tile: int):
+    """The flags kernel's interval cull (csrc/sparse.cu fl_cull) in the
+    same float operations, per (ray tile, cluster box): ([RT, K] bool, no
+    ray of the tile can flag the box; [RT, K] f32, the least entry any of
+    its rays can have; [RT] bool, the tile has a live ray). The bounds come
+    from each tile's span over its live rays (a NaN component left out): the
+    least and largest origin and 1 / d per axis, and the largest max_len.
+    It says which (ray tile, cluster) pairs the kernel tests, for the
+    flags' bound (and tests/test_torch_sparse_slab.py holds it exact)."""
+    import torch
+
+    from flexlight_tpu_torch.ops.intersect import BIAS
+    from flexlight_tpu_torch.ops.intersect_sparse_kernel import _inv_dir
+
+    rt = max_len.shape[0] // ray_tile
+    live = (max_len > 0.0).reshape(rt, ray_tile)
+
+    def span(x):
+        x = x.reshape(rt, ray_tile)
+        keep = live & ~torch.isnan(x)
+        return (torch.where(keep, x, float("inf")).amin(dim=1)[:, None],
+                torch.where(keep, x, float("-inf")).amax(dim=1)[:, None])
+
+    ml = torch.where(live, max_len.reshape(rt, ray_tile), float("-inf")).amax(dim=1)[:, None]
+    tmin_lo = tmax_hi = None
+    for c in range(3):
+        olo, ohi = span(o3[c])
+        ilo, ihi = span(_inv_dir(d3[c]))
+        lo, hi = amin[None, :, c], amax[None, :, c]
+        prods = torch.stack([x * i for x in (lo - ohi, lo - olo, hi - ohi, hi - olo)
+                             for i in (ilo, ihi)])
+        least, most = prods.amin(dim=0), prods.amax(dim=0)   # NaN-propagating, as fl_min_nan
+        tmin_lo = least if c == 0 else torch.maximum(tmin_lo, least)
+        tmax_hi = most if c == 0 else torch.minimum(tmax_hi, most)
+    entry_lo = torch.maximum(tmin_lo, tmin_lo.new_tensor(BIAS))
+    none = (tmax_hi < entry_lo) | (tmin_lo >= ml)
+    return none, entry_lo, live.any(dim=1)
 
 
 def golden_budget(a, b):
@@ -281,6 +334,7 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.ops.intersect_sparse import REC
         from flexlight_tpu_torch.ops.intersect_sparse_kernel import (CAST_LANES, EXIT_ABS,
                                                                      EXIT_REL, TRI_TILE,
+                                                                     cluster_minima_plain,
                                                                      record_products)
         from flexlight_tpu_torch.ops.pathtrace import render_mrt, sample_cos
         from flexlight_tpu_torch.post.filter_kernel import byte_i
@@ -371,12 +425,13 @@ def drive(args, dev, smi: str) -> int:
     # with the plain versions, recording the kernels' inputs
     rec_set = KernelSet(*(every_call(n, f) if n in in_place else first_call(n, f)
                           for n, f in zip(KernelSet._fields, PLAIN)))
-    # the worklist kernels' inputs: the first casts of one dragon stand-in
-    # frame through the kernels (flags: primary, shadow 0, bounce 1; key:
-    # shadow 0, bounce 1), and every cast of closest hit (primary, bounces
-    # 1-4) and any hit (shadows 0-4)
-    keep = {"sparse_flags": 3, "sparse_key": 2, "sparse_closest": config.max_reflections,
-            "sparse_any": config.max_reflections}
+    # the worklist kernels' inputs: every call of one dragon stand-in frame
+    # through the kernels (flags: primary, then shadow b and bounce b + 1 in
+    # turn; key: the same but the primary; closest hit: primary, bounces
+    # 1-4; any hit: shadows 0-4)
+    bounces = config.max_reflections
+    keep = {"sparse_flags": 2 * bounces, "sparse_key": 2 * bounces - 1,
+            "sparse_closest": bounces, "sparse_any": bounces}
     sparse_calls = {name: [] for name in sparse_names}
 
     def first_calls(name, fn):
@@ -691,15 +746,40 @@ def drive(args, dev, smi: str) -> int:
         return int((ml > 0).sum())
 
     def flags_bound(a, out):
-        amin, ml = a[0], a[4]
+        """The work this call's data needs of the flags kernel: per live ray
+        its setup, per (live ray tile, cluster) the interval cull, and the
+        slab test of every live ray of a tile against each cluster the cull
+        keeps (a tile's second cluster only where its least entry lies below
+        the first's minimum, as the kernel decides); bytes: every ray's
+        max_len, a live ray's origin and direction, the boxes and the flags.
+        (bound, (the all-pairs bound, pairs tested, live pairs))."""
+        amin, ml, rt_size = a[0], a[4], a[5]
         n, k, live = ml.shape[0], amin.shape[0], live_rays(ml)
-        return bound(f32 * (7 * n + 6 * k + out.numel()),
-                     live * (OPS_INV_DIR + k * OPS_FLAG)), None
+        none, entry_lo, live_t = flags_cull(*a)
+        per_tile = (ml > 0).reshape(-1, rt_size).sum(dim=1)
+        kept = ~none & live_t[:, None]
+        first, second = kept[:, 0::2], kept[:, 1::2]
+        best = torch.where(first, cluster_minima_plain(*a)[:, 0::2], POW32)
+        second_tested = second & ~(entry_lo[:, 1::2] >= best)
+        tested = int(((first.sum(dim=1) + second_tested.sum(dim=1)) * per_tile).sum())
+        nbytes = f32 * (n + 6 * live + 6 * k + out.numel())
+        ops = (live * OPS_FLAGS_RAY + int(live_t.sum()) * k * OPS_CULL
+               + int(second.sum()) * OPS_SKIP + tested * OPS_FLAG)
+        all_pairs = bound(nbytes, live * (OPS_FLAGS_RAY + k * OPS_FLAG))
+        return bound(nbytes, ops), (all_pairs, tested, live * k)
 
     def key_bound(a, out):
+        """Per live ray its setup and its slab test against every box;
+        bytes: every ray's max_len and key, a live ray's origin and
+        direction, and the boxes. (bound, (warps that test boxes after each
+        block packs its rays that are not dead, warps of the launch))."""
         bmin, ml = a[0], a[4]
         n, nb, live = ml.shape[0], bmin.shape[0], live_rays(ml)
-        return bound(f32 * (7 * n + 6 * nb + n), live * (OPS_KEY_RAY + nb * OPS_KEY_BOX)), None
+        blocks = torch.nn.functional.pad(ml, (0, -n % KEY_BLOCK_RAYS)).reshape(-1, KEY_BLOCK_RAYS)
+        packed = (~(blocks <= 0.0)).sum(dim=1)
+        working = int(((packed + 32 * KEY_RAYS - 1) // (32 * KEY_RAYS)).sum())
+        return (bound(f32 * (n + 6 * live + 6 * nb + n), live * (OPS_KEY_RAY + nb * OPS_KEY_BOX)),
+                (working, blocks.shape[0] * KEY_BLOCK_RAYS // KEY_RAYS // 32))
 
     def tile_bytes(tlist, slots):
         """Bytes of the worklist slots [RT] that each ray tile reads and of
@@ -841,18 +921,42 @@ def drive(args, dev, smi: str) -> int:
     def rays_label(ml):
         return f"{live_rays(ml)} of {ml.shape[0]} rays live"
 
-    for i, cast in enumerate(("primary", "shadow 0", "bounce 1")):
-        a = sparse_calls["sparse_flags"][i]
-        check_sparse("sparse_flags", f"{cast} cast, {rays_label(a[4])}, "
-                     f"{a[0].shape[0]} cluster boxes", a, flags_bound, main=i == 0)
-    for i, cast in enumerate(("shadow 0", "bounce 1")):
-        a = sparse_calls["sparse_key"][i]
-        check_sparse("sparse_key", f"{cast} cast, {rays_label(a[4])}, {a[0].shape[0]} "
-                     "supertile boxes", a, key_bound, main=i == 0)
+    # rows 8 and 9 on every call of the frame, each against its plain
+    # version and its bound: the flags before every cast (primary, then
+    # shadow b and bounce b + 1 in turn), the key before every hinted one
+    n_casts = config.max_reflections
+    flag_casts = ["primary"] + [c for b in range(n_casts)
+                                for c in (f"shadow {b}", f"bounce {b + 1}")][:2 * n_casts - 1]
+    frame = [0.0, 0.0, 0.0]
+    for i, (cast, a) in enumerate(zip(flag_casts, sparse_calls["sparse_flags"])):
+        k_ms, (bnd, (all_pairs, tested, pairs)), _ = check_sparse(
+            "sparse_flags", f"{cast} cast, {rays_label(a[4])}, {a[0].shape[0]} cluster boxes",
+            a, flags_bound, main=i == 0)
+        print(f"[prepass] sparse_flags ({cast}): {tested} of {pairs} live (ray, cluster) pairs "
+              f"tested, the cull rejects {1.0 - tested / max(pairs, 1):.4f}; kernel {k_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({k_ms / bnd[0]:.1f}x), all-pairs bound {all_pairs[0]:.4f} "
+              f"ms ({k_ms / all_pairs[0]:.1f}x)", flush=True)
+        frame = [frame[0] + k_ms, frame[1] + bnd[0], frame[2] + all_pairs[0]]
+    print(f"[kernel] sparse_flags: per frame ({len(flag_casts)} calls) kernel {frame[0]:.3f} ms, "
+          f"bound {frame[1]:.4f} ms ({frame[0] / frame[1]:.1f}x), all-pairs bound "
+          f"{frame[2]:.4f} ms ({frame[0] / frame[2]:.1f}x)", flush=True)
+    results["sparse_flags"].update(frame_ms=frame[0], frame_bound_ms=frame[1],
+                                   frame_all_pairs_bound_ms=frame[2])
+    frame = [0.0, 0.0]
+    for i, (cast, a) in enumerate(zip(flag_casts[1:], sparse_calls["sparse_key"])):
+        k_ms, (bnd, (working, warps)), _ = check_sparse(
+            "sparse_key", f"{cast} cast, {rays_label(a[4])}, {a[0].shape[0]} supertile boxes",
+            a, key_bound, main=i == 0)
+        print(f"[prepass] sparse_key ({cast}): {working} of {warps} warps test boxes after the "
+              f"blocks pack their rays; kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({k_ms / bnd[0]:.1f}x)", flush=True)
+        frame = [frame[0] + k_ms, frame[1] + bnd[0]]
+    print(f"[kernel] sparse_key: per frame ({len(flag_casts) - 1} calls) kernel {frame[0]:.3f} "
+          f"ms, bound {frame[1]:.4f} ms ({frame[0] / frame[1]:.1f}x)", flush=True)
+    results["sparse_key"].update(frame_ms=frame[0], frame_bound_ms=frame[1])
     # rows 6 and 7 on every cast of the frame: each timed against its bound;
     # the primary and bounce-1 closest hits and the shadow-0 any hit also
     # against their plain versions, with the lane-tests of the warp walk
-    n_casts = config.max_reflections
     casts = {"sparse_closest": ["primary"] + [f"bounce {b}" for b in range(1, n_casts)],
              "sparse_any": [f"shadow {b}" for b in range(n_casts)]}
     compared = {"sparse_closest": ("primary", "bounce 1"), "sparse_any": ("shadow 0",)}
@@ -958,7 +1062,6 @@ def drive(args, dev, smi: str) -> int:
     print(f"[main] theater {w}x{h}: scheme 'auto' resolves to {scheme!r}", flush=True)
     if scheme != "fused_split":
         fail("the main path must take scheme='fused_split'")
-    bounces = config.max_reflections
     frames, launches = drive_frames("main", e.renderer, args.frames)
     expect_launches("the main path", launches, args.frames, {"sp_pre": 1, "sp_post": bounces})
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")

@@ -1,13 +1,13 @@
 // Shared definitions of the flexlight_tpu_torch kernels.
 //
 // Every kernel here is launched 1-D over its items (rays or pixels) with
-// FL_LAUNCH, or over its blocks (ray tiles) with FL_LAUNCH_BLOCKS (or
-// FL_LAUNCH_BLOCKS_SHARED, with dynamic shared memory), and reads
-// blockDim.x wherever it cooperates inside a block.
+// FL_LAUNCH, or over its blocks (ray tiles) with FL_LAUNCH_BLOCKS, and
+// reads blockDim.x wherever it cooperates inside a block.
 // That lets the same sources compile for the host (-DFL_EMULATE, see
 // _native.build_library): each thread then runs in turn as a block of one,
-// __syncthreads() is a no-op, a warp vote is its own predicate, a warp
-// shuffle returns the thread's own value, an asynchronous copy to shared
+// __syncthreads() is a no-op, a warp is one lane (FL_WARP_LANES), a warp
+// vote or ballot is its own predicate, a warp shuffle or reduction returns
+// the thread's own value, an asynchronous copy to shared
 // memory is a plain copy and waiting for one is a no-op, and the C entry
 // points take host pointers.
 // The CPU tests use that build to hold the kernels' arithmetic against
@@ -16,6 +16,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef FL_EMULATE
 
@@ -31,7 +32,31 @@ static inline void __syncthreads() {}
 static inline int __syncthreads_and(int p) { return p; }
 static inline int __syncthreads_or(int p) { return p; }
 static inline int __any_sync(unsigned, int p) { return p; }
+static inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+static inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+static inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
+static inline int atomicAdd(int* p, int v) {
+    int old = *p;
+    *p += v;
+    return old;
+}
 template <typename T> static inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+template <typename T> static inline T __shfl_sync(unsigned, T v, int) { return v; }
+static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline unsigned __float_as_uint(float x) {
+    unsigned u;
+    memcpy(&u, &x, sizeof u);
+    return u;
+}
+static inline float __uint_as_float(unsigned u) {
+    float x;
+    memcpy(&x, &u, sizeof x);
+    return x;
+}
+#define __launch_bounds__(...)
+// the lanes of a warp: a block of one thread is a warp of one lane
+#define FL_WARP_LANES 1
 struct alignas(16) float4 { float x, y, z, w; };
 static inline void fl_cp_async16(float4* dst, const float4* src) { *dst = *src; }
 static inline void fl_cp_async_commit() {}
@@ -57,21 +82,10 @@ template <int N> static inline void fl_cp_async_wait() {}
         FL_LAUNCH(kernel, n_blocks, 1, stream, __VA_ARGS__);             \
     } while (0)
 
-// A block's dynamic shared memory of `floats` floats (FL_SHARED_FLOATS in
-// the kernel): one host buffer that every emulated block reuses.
-#include <vector>
-static thread_local float* fl_dyn_shared;
-#define FL_SHARED_FLOATS(name) float* name = fl_dyn_shared
-#define FL_LAUNCH_BLOCKS_SHARED(kernel, n_blocks, block, floats, stream, ...) \
-    do {                                                                 \
-        std::vector<float> shared_((size_t)(floats));                    \
-        fl_dyn_shared = shared_.data();                                  \
-        FL_LAUNCH_BLOCKS(kernel, n_blocks, block, stream, __VA_ARGS__);  \
-    } while (0)
-
 #else
 
 #include <cuda_runtime.h>
+#define FL_WARP_LANES 32
 #define FL_LAUNCH(kernel, n_items, block, stream, ...)                  \
     do {                                                                 \
         unsigned grid_ = (unsigned)(((n_items) + (block) - 1) / (block)); \
@@ -103,14 +117,6 @@ template <int N>
 __device__ __forceinline__ void fl_cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-#define FL_SHARED_FLOATS(name) extern __shared__ float name[]
-#define FL_LAUNCH_BLOCKS_SHARED(kernel, n_blocks, block, floats, stream, ...) \
-    do {                                                                 \
-        kernel<<<(unsigned)(n_blocks), (block), (size_t)(floats) * sizeof(float), \
-                 (cudaStream_t)(stream)>>>(__VA_ARGS__);                 \
-        return (int)cudaGetLastError();                                  \
-    } while (0)
 
 #endif
 

@@ -12,16 +12,28 @@
 // kernel takes their float operations in the same order.
 //
 // What bounds them on the H100, and the design:
-// - flags: a slab test of every ray of a ray tile against every 64-triangle
-//   cluster box, ~20 float operations each (operations bound). One block
-//   per ray tile; its rays (origin, 1/d, max_len) go to dynamic shared
-//   memory sized to the ray tile (3.5 KB at the path's 128 rays), each
-//   thread takes 128-triangle tiles (two clusters) and reduces the entry
-//   distance over the rays. Dead rays are skipped, so an all-dead tile
-//   writes POW32 after one pass over its max_len.
-// - key: the slab test of each ray against every supertile box (8
-//   clusters), keeping the best two by (entry, index) in one pass; the
-//   boxes pass through shared memory in chunks, one thread per ray.
+// - flags and key: the slab test of rays against boxes (fl_slab_entry: 12
+//   subtracts and multiplies, 11 NaN-propagating min / max of one
+//   instruction each, 2 compares, a select; operations bound). Rays stay in
+//   registers, several a thread, and each box is broadcast from shared
+//   memory as two 16-byte words, so one box load serves several tests.
+//   * flags: one warp per ray tile of at most 128 rays (4 a lane) and 64
+//     of its triangle tiles (a late cast's few live ray tiles still spread
+//     over many warps), in a persistent grid whose blocks load the cluster
+//     boxes once. A tile's
+//     minimum over its rays is one warp reduction over the entries' bits.
+//     An exact interval cull per (ray tile, cluster), from the ranges of
+//     the tile's live origins and inverse directions (fl_cull), skips the
+//     clusters that no ray of the tile can flag, and a tile's second
+//     cluster where its least possible entry is not below the first's
+//     minimum; the lanes cull 32 tiles at once and a ballot collects the
+//     survivors. A primary ray tile (one origin, a thin fan of directions)
+//     misses most clusters. An all-dead tile writes POW32.
+//   * key: 2 rays a thread, the best two by (entry, index) updated with
+//     selects; the boxes pass through shared memory in chunks. A block of
+//     512 rays packs its rays that are not dead into its first threads, so
+//     a warp left without one skips the boxes: the TPU kernel's dead-tile
+//     skip, for the dead rays of a late cast, which are scattered.
 // - closest / any hit: one block per ray tile (128 rays); the block walks
 //   the tile's worklist of 128-triangle tiles in entry order. A (ray,
 //   triangle) test is float work out of shared memory (operations bound;
@@ -66,8 +78,6 @@
 
 #define FL_SPARSE_TRI_TILE 128
 #define FL_SPARSE_CLUSTERS 2      // 64-triangle clusters per tile
-#define FL_FLAGS_SHARED 7         // floats of a ray in the flags' shared memory
-#define FL_KEY_BOX_CHUNK 256
 #define FL_EXIT_REL ((float)(1.0 + 1e-4))
 #define FL_EXIT_ABS ((float)1e-5)
 #define FL_TINY_DIR ((float)1e-30)
@@ -77,131 +87,420 @@ __device__ __forceinline__ float fl_slab_inv(float d) {
     return 1.0f / (d == 0.0f ? FL_TINY_DIR : d);
 }
 
-// The slab interval of one ray against one box (lo, hi: 3 floats each):
-// tmin over the axes of min(t0, t1), tmax of max(t0, t1), NaN-propagating
-// as jnp.max / torch.amax are.
-__device__ __forceinline__ void fl_slab(const float* o, const float* inv, const float* lo,
-                                        const float* hi, float& tmin, float& tmax) {
-    for (int c = 0; c < 3; ++c) {
-        float t0 = (lo[c] - o[c]) * inv[c];
-        float t1 = (hi[c] - o[c]) * inv[c];
-        float a = fl_minimum(t0, t1);
-        float b = fl_maximum(t0, t1);
-        tmin = c == 0 ? a : fl_maximum(tmin, a);
-        tmax = c == 0 ? b : fl_minimum(tmax, b);
+// NaN-propagating min / max (torch.minimum / torch.maximum) in one
+// instruction each (sm_80 and later). Their NaN is the canonical one, not
+// the operand's, and of two zeros they may return either sign: neither
+// reaches the slab test's outputs. Any NaN among a pair's six t values
+// makes tmin or tmax NaN, and then `tmax >= entry` (entry = max(tmin,
+// BIAS), NaN with tmin) is false, whatever the payload; a zero's sign
+// changes neither max(tmin, BIAS), nor `tmax >= entry` (entry >= BIAS),
+// nor `tmin < ml`.
+__device__ __forceinline__ float fl_min_nan(float a, float b) {
+#ifdef FL_EMULATE
+    return fl_minimum(a, b);
+#else
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+#endif
+}
+
+__device__ __forceinline__ float fl_max_nan(float a, float b) {
+#ifdef FL_EMULATE
+    return fl_maximum(a, b);
+#else
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+#endif
+}
+
+// A ray of the prepass kernels, in registers: origin, 1 / d, and max_len
+// (-inf where the ray is dead or absent, so that `tmin < ml` fails).
+struct fl_sray {
+    float o[3], inv[3], ml;
+};
+
+// Rays at[j] with max_len ml[j] into registers (rays not `in`: no ray).
+// Every load is issued before the first division: the division's slow
+// path is a call, and the compiler moves no load across it.
+template <int R>
+__device__ __forceinline__ void fl_srays_load(fl_sray (&r)[R], const size_t (&at)[R],
+                                              const bool (&in)[R], const float (&ml)[R],
+                                              const float* ox, const float* oy,
+                                              const float* oz, const float* dx,
+                                              const float* dy, const float* dz) {
+    float d[R][3];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        r[j].o[0] = in[j] ? ox[at[j]] : 0.0f;
+        r[j].o[1] = in[j] ? oy[at[j]] : 0.0f;
+        r[j].o[2] = in[j] ? oz[at[j]] : 0.0f;
+        d[j][0] = in[j] ? dx[at[j]] : 1.0f;
+        d[j][1] = in[j] ? dy[at[j]] : 1.0f;
+        d[j][2] = in[j] ? dz[at[j]] : 1.0f;
+        r[j].ml = in[j] && ml[j] > 0.0f ? ml[j] : -INFINITY;
     }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) r[j].inv[c] = fl_slab_inv(d[j][c]);
+}
+
+// The entry distance of ray r into box (lo, hi) where it enters the box
+// within its length, else POW32: the plain version's
+// where((tmax >= entry) & (tmin < ml), entry, POW32) with entry =
+// max(tmin, BIAS), tmin the max over the axes of min(t0, t1) and tmax the
+// min of max(t0, t1), t = (box - o) * (1 / d). 12 subtracts and
+// multiplies, 11 NaN-propagating min / max, 2 compares and a select.
+__device__ __forceinline__ float fl_slab_entry(const fl_sray& r, float4 lo, float4 hi) {
+    float t0 = (lo.x - r.o[0]) * r.inv[0], t1 = (hi.x - r.o[0]) * r.inv[0];
+    float tmin = fl_min_nan(t0, t1), tmax = fl_max_nan(t0, t1);
+    t0 = (lo.y - r.o[1]) * r.inv[1];
+    t1 = (hi.y - r.o[1]) * r.inv[1];
+    tmin = fl_max_nan(tmin, fl_min_nan(t0, t1));
+    tmax = fl_min_nan(tmax, fl_max_nan(t0, t1));
+    t0 = (lo.z - r.o[2]) * r.inv[2];
+    t1 = (hi.z - r.o[2]) * r.inv[2];
+    tmin = fl_max_nan(tmin, fl_min_nan(t0, t1));
+    tmax = fl_min_nan(tmax, fl_max_nan(t0, t1));
+    float entry = fl_max_nan(tmin, FL_BIAS);
+    return tmax >= entry && tmin < r.ml ? entry : FL_POW32;
+}
+
+// Box k of (lo, hi) [K, 3] as two 16-byte words, .w a pad.
+__device__ __forceinline__ void fl_box_load(float4* slo, float4* shi, const float* lo,
+                                            const float* hi, int k) {
+    slo->x = lo[3 * k];
+    slo->y = lo[3 * k + 1];
+    slo->z = lo[3 * k + 2];
+    slo->w = 0.0f;
+    shi->x = hi[3 * k];
+    shi->y = hi[3 * k + 1];
+    shi->z = hi[3 * k + 2];
+    shi->w = 0.0f;
 }
 
 // ---- flags: min entry distance of each (ray tile, triangle tile) ----------
 
-__global__ void fl_sparse_flags_kernel(const float* __restrict__ amin,
-                                       const float* __restrict__ amax, int wt,
-                                       const float* __restrict__ ox, const float* __restrict__ oy,
-                                       const float* __restrict__ oz, const float* __restrict__ dx,
-                                       const float* __restrict__ dy, const float* __restrict__ dz,
-                                       const float* __restrict__ max_len, int ray_tile,
-                                       float* __restrict__ out) {
-    // the tile's rays, FL_FLAGS_SHARED floats a ray: origin, 1 / d, max_len
-    FL_SHARED_FLOATS(sray);
-    float* so[3] = {sray, sray + ray_tile, sray + 2 * ray_tile};
-    float* sinv[3] = {sray + 3 * ray_tile, sray + 4 * ray_tile, sray + 5 * ray_tile};
-    float* sml = sray + 6 * ray_tile;
-    int rt = blockIdx.x;
-    int live = 0;
-    for (int r = threadIdx.x; r < ray_tile; r += blockDim.x) {
-        size_t i = (size_t)rt * ray_tile + r;
-        so[0][r] = ox[i];
-        so[1][r] = oy[i];
-        so[2][r] = oz[i];
-        sinv[0][r] = fl_slab_inv(dx[i]);
-        sinv[1][r] = fl_slab_inv(dy[i]);
-        sinv[2][r] = fl_slab_inv(dz[i]);
-        sml[r] = max_len[i];
-        live |= max_len[i] > 0.0f;
+#define FL_FLAGS_RAY_TILE 128                               // rays a warp holds
+#define FL_FLAGS_PER_LANE (FL_FLAGS_RAY_TILE / FL_WARP_LANES) // 4 (128 emulated)
+#define FL_FLAGS_WARPS 8                                    // work items a block holds
+#define FL_FLAGS_PART 64                                    // triangle tiles of a work item
+#define FL_FLAGS_CHUNK 1024                                 // cluster boxes in shared memory
+
+// What every ray of a ray tile can be, over its live rays: the range of
+// each origin and 1 / d component, and the largest max_len.
+struct fl_span {
+    float olo[3], ohi[3], ilo[3], ihi[3], ml;
+};
+
+// The interval cull of one cluster box against a ray tile's span. Every
+// float of (box - o) * (1 / d) that a live ray computes lies between the
+// least and the largest of the eight corner values (lo and hi, the two
+// extreme origins, the two extreme inverses) computed with the same float
+// operations: a correctly rounded subtract is monotone in o, a correctly
+// rounded multiply in each factor, and a product that is NaN for no corner
+// but a ray flags nothing. So the least corner of each axis bounds that
+// axis's min(t0, t1) from below, the largest its max(t0, t1) from above,
+// and the folds over the axes keep the bounds: `tmin_lo` <= every ray's
+// tmin, `tmax_hi` >= every ray's tmax. A corner NaN (0 x inf: an origin on
+// a face with a denormal direction component; inf - inf) makes both NaN.
+// Returns the least entry any ray can have, max(tmin_lo, BIAS), and sets
+// `none` where no ray can enter the box within its length: tmax_hi < that
+// entry, or tmin_lo >= the largest max_len. Both are comparisons that are
+// false for NaN, so a NaN bound rejects nothing.
+__device__ __forceinline__ float fl_cull(const fl_span& s, float4 lo, float4 hi, bool& none) {
+    float lo3[3] = {lo.x, lo.y, lo.z}, hi3[3] = {hi.x, hi.y, hi.z};
+    float tmin_lo = 0.0f, tmax_hi = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        float x[4] = {lo3[c] - s.ohi[c], lo3[c] - s.olo[c], hi3[c] - s.ohi[c],
+                      hi3[c] - s.olo[c]};
+        float least = x[0] * s.ilo[c], most = least;
+#pragma unroll
+        for (int q = 1; q < 8; ++q) {
+            float p = x[q >> 1] * (q & 1 ? s.ihi[c] : s.ilo[c]);
+            least = fl_min_nan(least, p);
+            most = fl_max_nan(most, p);
+        }
+        tmin_lo = c == 0 ? least : fl_max_nan(tmin_lo, least);
+        tmax_hi = c == 0 ? most : fl_min_nan(tmax_hi, most);
     }
-    float* row = out + (size_t)rt * wt;
-    if (!__syncthreads_or(live)) {
-        for (int w = threadIdx.x; w < wt; w += blockDim.x) row[w] = FL_POW32;
-        return;
+    float entry_lo = fl_max_nan(tmin_lo, FL_BIAS);
+    none = tmax_hi < entry_lo || tmin_lo >= s.ml;
+    return entry_lo;
+}
+
+// The least entry over the warp's rays into box (lo, hi), as the bits of a
+// positive float (which order as unsigned integers): each lane over its
+// rays, then one reduction over the warp.
+__device__ __forceinline__ unsigned fl_flags_box(const fl_sray (&rays)[FL_FLAGS_PER_LANE],
+                                                 float4 lo, float4 hi) {
+    float e = FL_POW32;
+#pragma unroll
+    for (int j = 0; j < FL_FLAGS_PER_LANE; ++j) e = fminf(e, fl_slab_entry(rays[j], lo, hi));
+    return __reduce_min_sync(0xffffffffu, __float_as_uint(e));
+}
+
+// The least / largest of a float over the warp (no NaN among them): one
+// reduction over an unsigned image of the float that keeps its order.
+__device__ __forceinline__ unsigned fl_ordered(float x) {
+    unsigned u = __float_as_uint(x);
+    return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+
+__device__ __forceinline__ float fl_unordered(unsigned u) {
+    return __uint_as_float(u & 0x80000000u ? u & 0x7fffffffu : ~u);
+}
+
+__device__ __forceinline__ float fl_warp_min(float x) {
+    return fl_unordered(__reduce_min_sync(0xffffffffu, fl_ordered(x)));
+}
+
+__device__ __forceinline__ float fl_warp_max(float x) {
+    return fl_unordered(__reduce_max_sync(0xffffffffu, fl_ordered(x)));
+}
+
+// One warp per work item, a ray tile of at most FL_FLAGS_RAY_TILE rays
+// (FL_FLAGS_PER_LANE a lane, in registers) and FL_FLAGS_PART of its
+// triangle tiles: a late cast's few live ray tiles then still spread over
+// many warps. A persistent grid whose blocks load the cluster boxes into
+// shared memory once (in chunks of FL_FLAGS_CHUNK where there are more)
+// and walk the items FL_FLAGS_WARPS at a time (blockIdx.x, blockIdx.x +
+// gridDim.x, ...). Per item: the span of the tile's live rays (none: its
+// flags are POW32); then, FL_WARP_LANES triangle tiles at a time, each lane
+// culls the two clusters of one tile, a ballot collects the survivors, and
+// the warp tests its rays against each surviving cluster (the second of a
+// tile only where its least entry is below the first's minimum); lane l
+// keeps the flag of tile l and the warp stores them together.
+__global__ void __launch_bounds__(FL_FLAGS_WARPS * 32)
+fl_sparse_flags_kernel(const float* __restrict__ amin, const float* __restrict__ amax, int nk,
+                       const float* __restrict__ ox, const float* __restrict__ oy,
+                       const float* __restrict__ oz, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ dz,
+                       const float* __restrict__ max_len, int ray_tile, int rt,
+                       float* __restrict__ out) {
+    __shared__ float4 sbox[2][FL_FLAGS_CHUNK];
+    const unsigned all = 0xffffffffu;
+    int lane = threadIdx.x % FL_WARP_LANES;
+    int warps = blockDim.x / FL_WARP_LANES;
+    int wt = nk / FL_SPARSE_CLUSTERS;
+    int parts = (wt + FL_FLAGS_PART - 1) / FL_FLAGS_PART;
+    int items = rt * parts;
+    bool resident = nk <= FL_FLAGS_CHUNK;
+    if (resident) {
+        for (int k = threadIdx.x; k < nk; k += blockDim.x)
+            fl_box_load(&sbox[0][k], &sbox[1][k], amin, amax, k);
+        __syncthreads();
     }
-    for (int w = threadIdx.x; w < wt; w += blockDim.x) {
-        float best = FL_POW32;
-        for (int k = w * FL_SPARSE_CLUSTERS; k < (w + 1) * FL_SPARSE_CLUSTERS; ++k) {
-            float lo[3] = {amin[3 * k], amin[3 * k + 1], amin[3 * k + 2]};
-            float hi[3] = {amax[3 * k], amax[3 * k + 1], amax[3 * k + 2]};
-            for (int r = 0; r < ray_tile; ++r) {
-                float ml = sml[r];
-                if (!(ml > 0.0f)) continue;  // dead rays flag nothing
-                float o[3] = {so[0][r], so[1][r], so[2][r]};
-                float inv[3] = {sinv[0][r], sinv[1][r], sinv[2][r]};
-                float tmin, tmax;
-                fl_slab(o, inv, lo, hi, tmin, tmax);
-                float entry = fl_maximum(tmin, FL_BIAS);
-                if (tmax >= entry && tmin < ml && entry < best) best = entry;
+    int groups = (items + warps - 1) / warps;
+    for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+        int item = g * warps + threadIdx.x / FL_WARP_LANES;
+        bool has = item < items;
+        int tile = has ? item / parts : 0;
+        int pw0 = (item - tile * parts) * FL_FLAGS_PART;
+        int pw1 = pw0 + FL_FLAGS_PART < wt ? pw0 + FL_FLAGS_PART : wt;
+        // max_len first: an item whose tile has no live ray reads nothing else
+        size_t at[FL_FLAGS_PER_LANE];
+        bool in[FL_FLAGS_PER_LANE];
+        float ml[FL_FLAGS_PER_LANE];
+        bool live = false;
+#pragma unroll
+        for (int j = 0; j < FL_FLAGS_PER_LANE; ++j) {
+            int r = lane + j * FL_WARP_LANES;
+            at[j] = (size_t)tile * ray_tile + r;
+            ml[j] = has && r < ray_tile ? max_len[at[j]] : 0.0f;
+            in[j] = ml[j] > 0.0f;   // NaN: no live ray, it flags nothing
+            live |= in[j];
+        }
+        live = __any_sync(all, live);
+        fl_sray rays[FL_FLAGS_PER_LANE];
+        fl_span s;
+        if (live) {
+            fl_srays_load(rays, at, in, ml, ox, oy, oz, dx, dy, dz);
+            // fminf / fmaxf pass over a NaN component: such a ray flags nothing
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                float olo = INFINITY, ohi = -INFINITY, ilo = INFINITY, ihi = -INFINITY;
+#pragma unroll
+                for (int j = 0; j < FL_FLAGS_PER_LANE; ++j) {
+                    if (!in[j]) continue;
+                    olo = fminf(olo, rays[j].o[c]);
+                    ohi = fmaxf(ohi, rays[j].o[c]);
+                    ilo = fminf(ilo, rays[j].inv[c]);
+                    ihi = fmaxf(ihi, rays[j].inv[c]);
+                }
+                s.olo[c] = fl_warp_min(olo);
+                s.ohi[c] = fl_warp_max(ohi);
+                s.ilo[c] = fl_warp_min(ilo);
+                s.ihi[c] = fl_warp_max(ihi);
+            }
+            float most = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < FL_FLAGS_PER_LANE; ++j) most = fmaxf(most, rays[j].ml);
+            s.ml = fl_warp_max(most);
+        }
+        float* row = out + (size_t)tile * wt;
+        for (int k0 = 0; k0 < nk; k0 += FL_FLAGS_CHUNK) {
+            int cnt = nk - k0 < FL_FLAGS_CHUNK ? nk - k0 : FL_FLAGS_CHUNK;
+            if (!resident) {
+                __syncthreads();
+                for (int k = threadIdx.x; k < cnt; k += blockDim.x)
+                    fl_box_load(&sbox[0][k], &sbox[1][k], amin, amax, k0 + k);
+                __syncthreads();
+            }
+            if (!has) continue;
+            // this item's triangle tiles in the chunk, [wa, wb); box j of
+            // the chunk is cluster k0 + j
+            int c0 = k0 / FL_SPARSE_CLUSTERS, c1 = (k0 + cnt) / FL_SPARSE_CLUSTERS;
+            int wa = pw0 > c0 ? pw0 : c0, wb = pw1 < c1 ? pw1 : c1;
+            const float4* slo = sbox[0];
+            const float4* shi = sbox[1];
+            for (int w0 = wa; w0 < wb; w0 += FL_WARP_LANES) {
+                int w = w0 + lane;   // this lane's triangle tile
+                bool none0 = true, none1 = true;
+                float entry1 = 0.0f;
+                if (live && w < wb) {
+                    int j = 2 * w - k0;
+                    fl_cull(s, slo[j], shi[j], none0);
+                    entry1 = fl_cull(s, slo[j + 1], shi[j + 1], none1);
+                }
+                unsigned m0 = __ballot_sync(all, !none0), m1 = __ballot_sync(all, !none1);
+                float flag = FL_POW32;
+                for (unsigned m = m0 | m1; m; m &= m - 1) {
+                    int b = __ffs(m) - 1;
+                    int k = 2 * (w0 + b) - k0;
+                    unsigned best = __float_as_uint(FL_POW32);
+                    if (m0 >> b & 1u) best = fl_flags_box(rays, slo[k], shi[k]);
+                    float least = __shfl_sync(all, entry1, b);
+                    if ((m1 >> b & 1u) && !(least >= __uint_as_float(best))) {
+                        unsigned e = fl_flags_box(rays, slo[k + 1], shi[k + 1]);
+                        best = e < best ? e : best;
+                    }
+                    if (lane == b) flag = __uint_as_float(best);
+                }
+                if (w < wb) row[w] = flag;
             }
         }
-        row[w] = best;
     }
+}
+
+// The persistent grid of the flags: as many blocks as fit on the card at
+// once, and no more than the groups of FL_FLAGS_WARPS items (emulated: a
+// block of one thread per item). The card's capacity is asked once, on the
+// first launch; the grid size only spreads the items (every block walks
+// them with a stride of gridDim.x), so any size is correct.
+#ifndef FL_EMULATE
+static int fl_flags_resident() {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fl_sparse_flags_kernel,
+                                                  FL_FLAGS_WARPS * 32, 0);
+    return (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+}
+#endif
+
+static int fl_flags_grid(int rt, int wt) {
+    int items = rt * ((wt + FL_FLAGS_PART - 1) / FL_FLAGS_PART);
+#ifdef FL_EMULATE
+    return items;
+#else
+    static const int most = fl_flags_resident();
+    int groups = (items + FL_FLAGS_WARPS - 1) / FL_FLAGS_WARPS;
+    return groups < most ? groups : most;
+#endif
 }
 
 // ---- nearest2 key: (nearest, second-nearest supertile, octant) per ray ----
 
-__global__ void fl_sparse_key_kernel(const float* __restrict__ bmin,
-                                     const float* __restrict__ bmax, int nb,
-                                     const float* __restrict__ ox, const float* __restrict__ oy,
-                                     const float* __restrict__ oz, const float* __restrict__ dx,
-                                     const float* __restrict__ dy, const float* __restrict__ dz,
-                                     const float* __restrict__ max_len, int n,
-                                     int* __restrict__ key_out) {
-    __shared__ float sb[6][FL_KEY_BOX_CHUNK];
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    bool in = i < n;
-    float o[3] = {0.0f, 0.0f, 0.0f}, inv[3] = {1.0f, 1.0f, 1.0f}, ml = 0.0f;
-    if (in) {
-        o[0] = ox[i];
-        o[1] = oy[i];
-        o[2] = oz[i];
-        inv[0] = fl_slab_inv(dx[i]);
-        inv[1] = fl_slab_inv(dy[i]);
-        inv[2] = fl_slab_inv(dz[i]);
-        ml = max_len[i];
+#define FL_KEY_THREADS 256     // threads of a block
+#define FL_KEY_RAYS 2          // rays a thread holds: a block holds 512 rays in a row
+#define FL_KEY_BOX_CHUNK 256   // supertile boxes in shared memory
+
+// A block takes FL_KEY_THREADS x FL_KEY_RAYS rays in a row: it writes the
+// dead key of its dead rays at once and packs the others into a list (in
+// any order: a ray's key depends on it alone), so that they fill the first
+// threads, FL_KEY_RAYS each, and a warp left without a ray skips the
+// boxes (it still joins the block's barriers): the TPU
+// kernel's dead-tile skip, for dead rays scattered among live ones. The
+// boxes pass through shared memory in chunks.
+__global__ void __launch_bounds__(FL_KEY_THREADS)
+fl_sparse_key_kernel(const float* __restrict__ bmin, const float* __restrict__ bmax, int nb,
+                     const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const float* __restrict__ max_len, int n, int* __restrict__ key_out) {
+    __shared__ float4 sb[2][FL_KEY_BOX_CHUNK];
+    __shared__ int slist[FL_KEY_THREADS * FL_KEY_RAYS];
+    __shared__ int scount;
+    size_t base = (size_t)blockIdx.x * blockDim.x * FL_KEY_RAYS;
+    if (threadIdx.x == 0) scount = 0;
+    __syncthreads();
+    int lane = threadIdx.x % FL_WARP_LANES;
+#pragma unroll
+    for (int j = 0; j < FL_KEY_RAYS; ++j) {
+        size_t i = base + threadIdx.x + (size_t)j * blockDim.x;
+        bool in = i < (size_t)n;
+        bool dead = in && max_len[i] <= 0.0f;   // a NaN max_len is no dead ray
+        if (dead) key_out[i] = 1 << 30;
+        // one shared atomic a warp: its rays that are not dead, in lane order
+        unsigned m = __ballot_sync(0xffffffffu, in && !dead);
+        int at0 = 0;
+        if (lane == 0 && m) at0 = atomicAdd(&scount, __popc(m));
+        at0 = __shfl_sync(0xffffffffu, at0, 0);
+        if (in && !dead) slist[at0 + __popc(m & ((1u << lane) - 1u))] = (int)(i - base);
     }
-    float e1 = FL_POW32, e2 = FL_POW32;
-    int i1 = nb, i2 = nb;
+    __syncthreads();
+    int count = scount;
+    fl_sray rays[FL_KEY_RAYS];
+    size_t at[FL_KEY_RAYS];
+    bool in[FL_KEY_RAYS];
+    float ml[FL_KEY_RAYS], e1[FL_KEY_RAYS], e2[FL_KEY_RAYS];
+    int i1[FL_KEY_RAYS], i2[FL_KEY_RAYS];
+    bool work = false;
+#pragma unroll
+    for (int j = 0; j < FL_KEY_RAYS; ++j) {
+        int q = threadIdx.x * FL_KEY_RAYS + j;   // the rays fill the first threads
+        in[j] = q < count;
+        at[j] = in[j] ? base + slist[q] : (size_t)n;
+        ml[j] = in[j] ? max_len[at[j]] : 0.0f;
+        work |= in[j];
+        e1[j] = e2[j] = FL_POW32;
+        i1[j] = i2[j] = nb;
+    }
+    fl_srays_load(rays, at, in, ml, ox, oy, oz, dx, dy, dz);
+    work = __any_sync(0xffffffffu, work);
     for (int b0 = 0; b0 < nb; b0 += FL_KEY_BOX_CHUNK) {
         int cnt = nb - b0 < FL_KEY_BOX_CHUNK ? nb - b0 : FL_KEY_BOX_CHUNK;
-        for (int e = threadIdx.x; e < 3 * cnt; e += blockDim.x) {
-            int j = e / 3, c = e - 3 * j;
-            sb[c][j] = bmin[3 * (b0 + j) + c];
-            sb[3 + c][j] = bmax[3 * (b0 + j) + c];
-        }
         __syncthreads();
-        if (in) {
-            for (int j = 0; j < cnt; ++j) {
-                float lo[3] = {sb[0][j], sb[1][j], sb[2][j]};
-                float hi[3] = {sb[3][j], sb[4][j], sb[5][j]};
-                float tmin, tmax;
-                fl_slab(o, inv, lo, hi, tmin, tmax);
-                float entry = fl_maximum(tmin, FL_BIAS);
-                float e = (tmax >= entry && tmin < ml) ? entry : FL_POW32;
-                // best two by (entry, lowest index); entries at or past
-                // POW32 are no candidate (index nb)
-                if (e < e1) {
-                    e2 = e1;
-                    i2 = i1;
-                    e1 = e;
-                    i1 = b0 + j;
-                } else if (e < e2) {
-                    e2 = e;
-                    i2 = b0 + j;
-                }
+        for (int k = threadIdx.x; k < cnt; k += blockDim.x)
+            fl_box_load(&sb[0][k], &sb[1][k], bmin, bmax, b0 + k);
+        __syncthreads();
+        if (!work) continue;
+        for (int k = 0; k < cnt; ++k) {
+            float4 lo = sb[0][k], hi = sb[1][k];
+#pragma unroll
+            for (int j = 0; j < FL_KEY_RAYS; ++j) {
+                // best two by (entry, lowest index): the boxes come in
+                // ascending index, so a tie keeps the earlier box; entries
+                // at or past POW32 are no candidate (index nb)
+                float e = fl_slab_entry(rays[j], lo, hi);
+                bool first = e < e1[j], second = e < e2[j];
+                e2[j] = first ? e1[j] : (second ? e : e2[j]);
+                i2[j] = first ? i1[j] : (second ? b0 + k : i2[j]);
+                e1[j] = first ? e : e1[j];
+                i1[j] = first ? b0 + k : i1[j];
             }
         }
-        __syncthreads();
     }
-    if (in) {
-        int octant = (inv[0] > 0.0f) * 4 + (inv[1] > 0.0f) * 2 + (inv[2] > 0.0f);
-        key_out[i] = ml <= 0.0f ? (1 << 30) : (i1 * (nb + 1) + i2) * 8 + octant;
+#pragma unroll
+    for (int j = 0; j < FL_KEY_RAYS; ++j) {
+        if (at[j] >= (size_t)n) continue;
+        const fl_sray& r = rays[j];
+        int octant = (r.inv[0] > 0.0f) * 4 + (r.inv[1] > 0.0f) * 2 + (r.inv[2] > 0.0f);
+        key_out[at[j]] = (i1[j] * (nb + 1) + i2[j]) * 8 + octant;
     }
 }
 
@@ -495,8 +794,9 @@ FL_EXPORT int fl_sparse_flags(const float* amin, const float* amax, int wt, cons
                               const float* dy, const float* dz, const float* max_len,
                               int ray_tile, int rt, float* out, void* stream) {
     if (rt <= 0 || wt <= 0) return 0;
-    FL_LAUNCH_BLOCKS_SHARED(fl_sparse_flags_kernel, rt, 128, FL_FLAGS_SHARED * ray_tile, stream,
-                            amin, amax, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, out);
+    FL_LAUNCH_BLOCKS(fl_sparse_flags_kernel, fl_flags_grid(rt, wt), FL_FLAGS_WARPS * FL_WARP_LANES,
+                     stream, amin, amax, wt * FL_SPARSE_CLUSTERS, ox, oy, oz, dx, dy, dz, max_len,
+                     ray_tile, rt, out);
 }
 
 FL_EXPORT int fl_sparse_key(const float* bmin, const float* bmax, int nb, const float* ox,
@@ -504,8 +804,8 @@ FL_EXPORT int fl_sparse_key(const float* bmin, const float* bmax, int nb, const 
                             const float* dz, const float* max_len, int n, int* key_out,
                             void* stream) {
     if (n <= 0) return 0;
-    FL_LAUNCH(fl_sparse_key_kernel, n, 128, stream, bmin, bmax, nb, ox, oy, oz, dx, dy, dz,
-              max_len, n, key_out);
+    FL_LAUNCH(fl_sparse_key_kernel, (n + FL_KEY_RAYS - 1) / FL_KEY_RAYS, FL_KEY_THREADS, stream,
+              bmin, bmax, nb, ox, oy, oz, dx, dy, dz, max_len, n, key_out);
 }
 
 FL_EXPORT int fl_sparse_closest(const float* rec, const int* tlist, const float* tms,

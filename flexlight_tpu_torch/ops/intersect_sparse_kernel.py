@@ -41,7 +41,9 @@ from .intersect_sparse import CLUSTER, REC, TRI_TILE
 
 CLUSTERS_PER_TILE = TRI_TILE // CLUSTER
 TINY_DIR = 1e-30         # a zero direction component in the slab test
-MAX_RAY_TILE = 1024      # rays of a ray tile (the flags keep a tile's rays in shared memory)
+MAX_RAY_TILE = 1024      # threads of a block
+FLAGS_RAY_TILE = 128     # rays of a ray tile of the flags (csrc/sparse.cu FL_FLAGS_RAY_TILE):
+                         # one warp holds them, 4 a lane
 CAST_LANES = 8           # threads per ray of the casts (csrc/sparse.cu FL_SUB_LANES), whose
                          # block is one ray tile: at most 1024 threads
 DEAD_KEY = 1 << 30
@@ -69,12 +71,12 @@ def _inv_dir(d):
     return 1.0 / torch.where(d == 0.0, TINY_DIR, d)
 
 
-def flags_plain(amin, amax, o3, d3, max_len, ray_tile: int):
-    """[RT, WT] f32: the least entry distance of a live ray of each ray
-    tile into each triangle tile (POW32: none enters it)."""
+def cluster_minima_plain(amin, amax, o3, d3, max_len, ray_tile: int):
+    """[RT, K] f32: the least entry distance of a live ray of each ray tile
+    into each cluster box (POW32: none enters it), the flags before each
+    triangle tile's minimum over its clusters."""
     n = max_len.shape[0]
     k = amin.shape[0]
-    rt, wt = n // ray_tile, k // CLUSTERS_PER_TILE
     o, d = _stack3(o3, d3)
     step = max(1, _BUDGET // (8 * k * ray_tile)) * ray_tile
     per = []
@@ -86,7 +88,15 @@ def flags_plain(amin, amax, o3, d3, max_len, ray_tile: int):
         hit = (tmax >= entry) & (tmin < ml) & (ml > 0.0)
         e = torch.where(hit, entry, POW32)
         per.append(e.reshape(-1, ray_tile, k).amin(dim=1))
-    return torch.cat(per).reshape(rt, wt, CLUSTERS_PER_TILE).amin(dim=-1)
+    return torch.cat(per)
+
+
+def flags_plain(amin, amax, o3, d3, max_len, ray_tile: int):
+    """[RT, WT] f32: the least entry distance of a live ray of each ray
+    tile into each triangle tile (POW32: none enters it)."""
+    rt, wt = max_len.shape[0] // ray_tile, amin.shape[0] // CLUSTERS_PER_TILE
+    minima = cluster_minima_plain(amin, amax, o3, d3, max_len, ray_tile)
+    return minima.reshape(rt, wt, CLUSTERS_PER_TILE).amin(dim=-1)
 
 
 def nearest2_key_plain(bmin, bmax, o3, d3, max_len):
@@ -262,7 +272,7 @@ def _flags_launch(lib, stream, amin, amax, o3, d3, max_len, ray_tile: int):
     if k % CLUSTERS_PER_TILE:
         raise ValueError(f"{k} cluster boxes are not whole triangle tiles")
     n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
-    rt, wt = _tiles_of(n, ray_tile), k // CLUSTERS_PER_TILE
+    rt, wt = _tiles_of(n, ray_tile, FLAGS_RAY_TILE), k // CLUSTERS_PER_TILE
     out = torch.empty((rt, wt), dtype=torch.float32, device=dev)
     _native.check(lib.fl_sparse_flags(_native.ptr(amin), _native.ptr(amax), wt, *ray_ptrs,
                                       ray_tile, rt, _native.ptr(out), stream), "sparse_flags")

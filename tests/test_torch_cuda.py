@@ -178,6 +178,26 @@ def test_sparse_walk_with_a_mixed_ray_tile_matches_plain_on_the_card(dev):
         assert (ref[3][:64] >= 0).eq(ml[:64] > 0).all() and (ref[3][64:128] == -1).all()
 
 
+@pytest.mark.parametrize("name", ["denormal", "zero", "padding", "faces", "both_signs",
+                                  "sparse_live", "many_boxes", "corner"])
+def test_prepass_kernels_match_plain_on_crafted_inputs(dev, name):
+    """The tile flags and the nearest2 key on test_torch_sparse_slab's
+    inputs (denormal and zero direction components, padding boxes, origins
+    on faces and inside nested boxes, 1 / d of both signs, one live ray, a
+    dead warp beside live ones, more boxes than a shared chunk, the cull's
+    exact corners), where every lane of a warp votes and reduces."""
+    from flexlight_tpu_torch.ops import intersect_sparse_kernel as K
+    from test_torch_sparse_slab import RT, corner_case, flags_inputs, key_inputs, slab_cases
+
+    case = corner_case() if name == "corner" else slab_cases()[name]
+    fa = flags_inputs(case, dev)
+    got = K.sparse_flags(*fa, RT)
+    assert got.is_cuda and torch.equal(got, K.flags_plain(*fa, RT))
+    ka = key_inputs(case, dev)
+    got = K.sparse_key(*ka)
+    assert got.is_cuda and torch.equal(got, K.nearest2_key_plain(*ka))
+
+
 def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, dev):
     from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
 

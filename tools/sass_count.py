@@ -1,0 +1,116 @@
+"""Count the SASS instructions of a kernel's innermost loops.
+
+    python3 tools/sass_count.py [--lib path/to/libflexlight_kernels.so]
+                                [--kernel fl_sparse_flags_kernel ...]
+
+Disassembles the kernel library with the CUDA toolkit's `cuobjdump -sass`
+(the library that `flexlight_tpu_torch._native.library()` builds, unless
+--lib names another, e.g. a parent tree's build), finds each kernel's loops
+(a branch back to a lower address closes one) and, for every innermost loop
+(one whose address range holds no other loop's), prints its address range,
+its static instruction count, its FMUL and FMNMX counts and its opcodes by
+count. Where two such ranges overlap (a second back edge into the same
+code), both are printed and marked: the later range's count then takes in
+part of the earlier body and is no loop body of its own. Which loop is which
+test is read off the source (PERF.md names the ranges). Needs the CUDA
+toolkit; the card itself is not used.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = ("fl_sparse_flags_kernel", "fl_sparse_key_kernel")
+LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+
+
+def functions(sass: str):
+    """{function name: [(address, instruction text)]} of a -sass dump."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = LINE.search(line)
+        if m and name:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def opcode(text: str) -> str:
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def innermost_loops(code):
+    """[(start, end)] address ranges of the loops that hold no other."""
+    loops = []
+    for addr, text in code:
+        if opcode(text) == "BRA":
+            m = re.search(r"0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+    return [a for a in loops
+            if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lib", default=None)
+    ap.add_argument("--kernel", nargs="+", default=list(KERNELS))
+    args = ap.parse_args()
+    lib = args.lib
+    if lib is None:
+        sys.path.insert(0, ROOT)
+        from flexlight_tpu_torch import _native
+
+        built = _native.library()
+        lib = os.path.join(str(built.build_dir), _native.LIB_NAME)
+    res = subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        print(f"FAIL: cuobjdump: {res.stderr.strip()}", flush=True)
+        return 1
+    funcs = functions(res.stdout)
+    print(f"[sass] {lib}: {len(funcs)} functions", flush=True)
+    status = 0
+    for want in args.kernel:
+        names = [n for n in funcs if want in n]
+        if not names:
+            print(f"[sass] {want}: not in the library", flush=True)
+            status = 1
+            continue
+        code = funcs[names[0]]
+        loops = innermost_loops(code)
+        for start, end in loops:
+            body = [t for a, t in code if start <= a <= end]
+            ops = collections.Counter(opcode(t) for t in body)
+            shared = [f"{a:#x}-{b:#x}" for a, b in loops
+                      if (a, b) != (start, end) and a <= end and start <= b]
+            note = f" (overlaps {', '.join(shared)})" if shared else ""
+            top = ", ".join(f"{k} {v}" for k, v in ops.most_common())
+            print(f"[sass] {want} loop {start:#x}-{end:#x}{note}: {len(body)} instructions, "
+                  f"{ops.get('FMUL', 0)} FMUL, {ops.get('FMNMX', 0)} FMNMX; {top}", flush=True)
+    return status
+
+
+if __name__ == "__main__":
+    sys.exit(main())
