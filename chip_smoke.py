@@ -10,8 +10,10 @@ Phases, one line each (any failure exits non-zero):
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, on the inputs one real theater 1080p frame hands it: the PRE and
      POST kernels of scheme="fused_split" on the state block of every call
-     of a frame (5 bounces) and of one resampling PRE (2 spp); the
-     traversal kernels on the primary and shadow wavefronts of a
+     of a frame (5 bounces) and of one resampling PRE (2 spp), and POST's
+     live-ray list kernel on the state of each POST call (the same rays,
+     each once; per call POST's time, its live rays and the list's time);
+     the traversal kernels on the primary and shadow wavefronts of a
      scheme="kernel" frame and on a seeded random bounce wavefront; the
      shade kernel on the state of each of the 5 bounces of that
      scheme="kernel" frame with shade_kernel=True; the filter passes and
@@ -27,18 +29,26 @@ Phases, one line each (any failure exits non-zero):
      with the ray-triangle tests their warp walk issues beside those the
      bound counts), and the interp_shade kernel on the state of each of its 5
      bounces; and the whole-frame kernel of scheme="fused"
-     (fused_frame) on wave's 1080p camera rays at 2 spp, 5 bounces. Each
+     (fused_frame) on wave's 1080p camera rays at 1 spp (the frame the port
+     renders) and at 2 spp, 5 bounces, with its live ray-bounces and the
+     share of its lane-slots that did live work (its `lane_stats` counts,
+     which must count each live ray-bounce once) beside a block-wide
+     schedule's share on the same frame. Each
      kernel takes the same operations in the same order as its plain
      version, so their outputs must be identical; prints the number of
      differing values, the max abs difference, the median CUDA-event time
      of both sides (the slow plain worklist casts: one timed call) and the
-     least time the card could take (bound).
+     least time the card could take (bound). The bounds of POST and
+     fused_frame count each cast's (ray, triangle) pairs up to the record
+     test's reject that takes them (`table_cast_ops`), on the card in
+     chunks.
   4. main path: theater at 1080p (stand-in wood texture from --seed), full
      pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
      through FlexLight(...).renderer = "pathtracer" and render_frame(),
      scheme "auto", which must resolve to "fused_split"; checks the output,
-     that each frame launched PRE once, POST five times and the filter and
-     FXAA kernels, and that the frames match the same frames rendered with
+     that each frame launched PRE once, POST five times (and its live-ray
+     list kernel five times) and the filter and FXAA kernels, and that the
+     frames match the same frames rendered with
      every kernel swapped for its plain version (<= 1% of values over 2e-3,
      max <= 0.5).
   5. the scheme="kernel" path: the same frame at half size (960x540 by
@@ -71,7 +81,9 @@ Phases, one line each (any failure exits non-zero):
      above; one frame's MRT on scheme="fused" must be identical to the
      same frame's on scheme="fused_split" (both through the kernels), and
      the CUDA-event time of both MRT passes is printed.
-Then one JSON line per the kernels (the four worklist kernels' ms and
+Then one JSON line per the kernels (POST and its list kernel: the sums
+over the frame's 5 calls; fused_frame: the 1-spp launch, with the 2-spp
+launch's ms_2spp, plain_ms_2spp and bound_ms_2spp; the four worklist kernels' ms and
 bound_ms are those of their first compared call, frame_ms and
 frame_bound_ms the sums over the frame's calls; the flags add
 frame_all_pairs_bound_ms, the bound of testing every live pair), the
@@ -99,10 +111,12 @@ FP32_OPS_PER_S = 67e12
 # integer and address arithmetic count none, and so does work that a
 # data-dependent branch may skip (a gated tap, a first-surface update), so
 # each count is the least its inputs need.
-# One Moeller-Trumbore test (trace.cuh) needs only the non-zero terms of W's
-# rows (ops/intersect_kernel.py tri_rows: det 3, udet 9, vdet 9, sdet 3 and
-# a constant): 24 multiplies and 21 adds, the divide, the three scales,
-# u + v and 8 compares; an any hit keeps no running minimum (7 compares).
+# One Moeller-Trumbore test of W's rows (trace.cuh fl_mt_*: the traversal
+# kernels and PRE) needs only their non-zero terms (ops/intersect_kernel.py
+# tri_rows: det 3, udet 9, vdet 9, sdet 3 and a constant): 24 multiplies and
+# 21 adds, the divide, the three scales, u + v and 8 compares; an any hit
+# keeps no running minimum (7 compares). The record test (POST, FRAME and
+# the worklist casts) is counted per pair up to its reject (OPS_REC_*).
 OPS_CLOSEST_TEST = 58
 OPS_ANY_TEST = 57
 OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
@@ -181,6 +195,8 @@ OPS_REC_DET = 6
 OPS_REC_SDET = {True: 8, False: 7}   # closest hit, any hit
 OPS_REC_UV = 17
 OPS_REC_DIVIDE = 4
+# a pair that an any hit accepts passes every reject and the window's 7 compares
+OPS_REC_ACCEPT = OPS_REC_DET + OPS_REC_SDET[False] + 2 * (OPS_REC_UV + 1) + OPS_REC_DIVIDE + 7
 
 
 def fail(msg: str) -> None:
@@ -329,7 +345,9 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch import Config, _native, reset_global_registry
         from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
         from flexlight_tpu_torch.ops import fused as F
+        from flexlight_tpu_torch.ops import fused_kernel as SK
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
+        from flexlight_tpu_torch.ops.intersect_kernel import _safe_dirs
         from flexlight_tpu_torch.ops.buffers import build_scene_buffers
         from flexlight_tpu_torch.ops.intersect_sparse import REC
         from flexlight_tpu_torch.ops.intersect_sparse_kernel import (CAST_LANES, EXIT_ABS,
@@ -523,11 +541,14 @@ def drive(args, dev, smi: str) -> int:
             fail(f"{name} ({label}) disagrees with its plain version")
 
     def check(name, label, args_, bnd, packed=False, main=True):
-        """Kernel vs plain on one input: the outputs must be identical."""
+        """Kernel vs plain on one input: the outputs must be identical.
+        Returns (kernel ms, plain ms)."""
         kernel_fn = lambda: getattr(KERNELS, name)(*args_)  # noqa: E731
         plain_fn = lambda: getattr(PLAIN, name)(*args_)  # noqa: E731
         count, err = differences(kernel_fn(), plain_fn(), packed)
-        report(name, label, count, err, cuda_ms(kernel_fn), cuda_ms(plain_fn), bnd, main)
+        k_ms, p_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        report(name, label, count, err, k_ms, p_ms, bnd, main)
+        return k_ms, p_ms
 
     def check_state(name, label, args_, bnd, main=True):
         """The same for the kernels that update their blocks in place (PRE /
@@ -566,6 +587,82 @@ def drive(args, dev, smi: str) -> int:
         its calls."""
         results[name].update(ms=sums[0], plain_ms=sums[1], bound_ms=sums[2])
 
+    def rec_test_ops(det, udet, vdet, sdet, ml, edge, closest):
+        """int32 per pair: the operations of the record test (trace.cuh
+        fl_rec_closest / fl_rec_any) of each (ray, triangle) pair with these
+        products, up to the reject that takes it (OPS_REC_*)."""
+        cull = not closest or edge > 0
+        if closest:
+            go, pos = det.abs() >= BIAS, det > 0
+
+            def sign(x):
+                return torch.where(pos, x > 0, x < 0)
+        else:
+            go = det >= BIAS
+
+            def sign(x):
+                return x > 0
+        ops = torch.full(det.shape, OPS_REC_DET, dtype=torch.int32, device=det.device)
+        ops += go * OPS_REC_SDET[closest]
+        go &= sign(sdet)
+        for x in (udet, vdet):
+            ops += go * (OPS_REC_UV + cull)
+            if cull:
+                go &= sign(x)
+        ops += go * OPS_REC_DIVIDE
+        inv = 1.0 / det
+        u, v, s = udet * inv, vdet * inv, sdet * inv
+        for step, ok in ((1, u >= edge), (1, u <= 1.0), (1, v >= edge), (2, u + v <= 1.0),
+                         (1, s > BIAS), (1, s <= ml)):
+            ops += go * step
+            go &= ok
+        return ops + go if closest else ops
+
+    def table_cast_ops(rec, closest, o3, d3, ml, edge, hit):
+        """The operations of one cast of POST or FRAME (a thread's loop over
+        the whole record table `rec` [T, 16], csrc/trace.cuh fl_table_*):
+        per live ray (max_len > 0) its record ray, and every pair up to its
+        reject (closest hit: every triangle; any hit: the whole table for a
+        ray that nothing occludes, one accepted pair for one that is
+        occluded, `hit`). Counted on the card in chunks of pairs."""
+        d3 = _safe_dirs(d3)
+        live = (ml > 0).nonzero().flatten()
+        q = [rec[None, :, k] for k in range(REC)]
+        step = max(1, (1 << 24) // max(rec.shape[0], 1))
+        total = live.numel() * OPS_REC_RAY
+        for a0 in range(0, live.numel(), step):
+            idx = live[a0:a0 + step]
+            prods = record_products(q, [c[idx][:, None] for c in o3],
+                                    [c[idx][:, None] for c in d3])
+            ops = rec_test_ops(*prods, ml[idx][:, None], edge, closest).sum(dim=1,
+                                                                            dtype=torch.int64)
+            if not closest:
+                ops = torch.where(hit[idx], OPS_REC_ACCEPT, ops)
+            total += int(ops.sum())
+        return total
+
+    def plain_casts(fn, args, on_cast):
+        """fn(*args) (a plain version that casts through ops.fused's
+        closest_hit_plain / any_hit_plain), calling on_cast(closest, o3, d3,
+        max_len, edge, hit) after each of its casts; fn's result."""
+        real_closest, real_any = F.closest_hit_plain, F.any_hit_plain
+
+        def closest(w4_, ids_, o3, d3, ml, edge=BIAS):
+            out = real_closest(w4_, ids_, o3, d3, ml, edge)
+            on_cast(True, o3, d3, ml, edge, out[3] >= 0)
+            return out
+
+        def any_(w4_, o3, d3, ml):
+            out = real_any(w4_, o3, d3, ml)
+            on_cast(False, o3, d3, ml, BIAS, out)
+            return out
+
+        F.closest_hit_plain, F.any_hit_plain = closest, any_
+        try:
+            return fn(*args)
+        finally:
+            F.closest_hit_plain, F.any_hit_plain = real_closest, real_any
+
     # PRE / POST (scheme="fused_split")
     state0, dirs, w4, ids = captured["sp_pre"][0][:4]
     n, tp = dirs.shape[1], w4.shape[1]
@@ -576,26 +673,53 @@ def drive(args, dev, smi: str) -> int:
                       n * (OPS_MAKE_RAY + tp * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE)))
     check_state("sp_pre", f"resampling (2nd of 2 spp), {n} rays", resample[0],
                 bound((3 + 4 + 8 + F.SP_C) * f32 * n, n * OPS_BOUNCE_PRE), main=False)
-    post_sum = [0.0, 0.0, 0.0]
+    post_sum, list_sum = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
     lights = captured["sp_post"][0][6]
     n_lights, lights_on = lights.shape[0], int((lights[:, 1, 0] > 0).sum())
     per_call, per_out = OPS_NOISE[config.rng]
+    rec = F.record_from_w4(captured["sp_post"][0][3])
     for call in captured["sp_post"]:
         i = call[-2]
-        live = int((call[0][F.SURF] > 0).sum())
+        state = call[0]
+        live = int((state[F.SURF] > 0).sum())
         nxt = i + 1 < config.max_reflections
-        nbytes = f32 * (n + live * (32 + 4 + 9 + 2 + 32 + (19 if nxt else 0)))
-        # the shadow ray counted at one test: the least an any hit needs
+        # the state's m row, then the live rays' words and the table (the
+        # list's bytes are the list kernel's own bound)
+        nbytes = f32 * (n + live * (32 + 4 + 9 + 2 + 32 + (19 if nxt else 0)) + tp * REC)
         per_ray = (OPS_SHADE + i + (OPS_FIRST_LENGTH if i == 1 else 0)
                    + 2 * per_call + 6 * per_out
                    + n_lights * (OPS_LIGHT + per_call + 2 * per_out) + lights_on * OPS_LIGHT_ON
-                   + OPS_MAKE_RAY + OPS_ANY_TEST + OPS_APPLY
-                   + (OPS_MAKE_RAY + tp * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE if nxt else 0))
-        bnd = bound(nbytes, live * per_ray)
+                   + OPS_APPLY + (OPS_BOUNCE_PRE if nxt else 0))
+        cast_ops = [0]
+
+        def count_cast(closest, o3, d3, ml, edge, hit):
+            cast_ops[0] += table_cast_ops(rec, closest, o3, d3, ml, edge, hit)
+
+        plain_casts(F.sp_post_plain, clone(call), count_cast)
+        bnd = bound(nbytes, live * per_ray + cast_ops[0])
         k_ms, p_ms = check_state("sp_post", f"bounce {i}, {live} of {n} rays live", call, bnd,
                                  main=(i == 0))
         post_sum = [post_sum[0] + k_ms, post_sum[1] + p_ms, post_sum[2] + bnd[0]]
+        # the live-ray list (launched by every POST call, and timed within it)
+        got, count = SK.sp_live_list(state)
+        ref, ref_count = F.live_list_plain(state)
+        k = int(ref_count)
+        differ = int(int(count) != k) + int((got[:k].sort().values != ref[:k]).sum())
+        list_bnd = bound(f32 * (n + live + 1), n)
+        l_ms = cuda_ms(lambda: SK.sp_live_list(state))  # noqa: B023
+        lp_ms = cuda_ms(lambda: F.live_list_plain(state))  # noqa: B023
+        report("sp_live_list", f"bounce {i}, {live} of {n} rays live; the same rays, each once, "
+               f"in any order of the warps' runs", differ, 0.0, l_ms, lp_ms, list_bnd,
+               main=(i == 0))
+        list_sum = [list_sum[0] + l_ms, list_sum[1] + lp_ms, list_sum[2] + list_bnd[0]]
+        print(f"[post] bounce {i}: POST {k_ms:.3f} ms (its list kernel {l_ms:.3f} ms) at {live} "
+              f"of {n} rays live, {k_ms * 1e6 / max(live, 1):.3f} ns a live ray; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}, {k_ms / bnd[0]:.1f}x)", flush=True)
     frame_sums("sp_post", post_sum)
+    frame_sums("sp_live_list", list_sum)
+    print(f"[post] per frame ({len(captured['sp_post'])} calls): POST {post_sum[0]:.3f} ms "
+          f"(the list kernel {list_sum[0]:.3f} ms), bound {post_sum[2]:.4f} ms "
+          f"({post_sum[0] / post_sum[2]:.1f}x)", flush=True)
     del captured["sp_pre"], captured["sp_post"], resample
     torch.cuda.empty_cache()
 
@@ -639,44 +763,79 @@ def drive(args, dev, smi: str) -> int:
         del captured[name]
     torch.cuda.empty_cache()
 
-    # the whole-frame kernel (scheme="fused") on wave's camera rays, 2 spp
+    # the whole-frame kernel (scheme="fused") on wave's camera rays: 1 spp
+    # (the frame the port renders) and 2 spp
     we, _ = wave_engine(w, h)
     wb = build_scene_buffers(we.scene, dev)
-    cfg2 = config.replace(samples_per_ray=2)
-    fargs = fused_frame_args(wb, we.camera, cfg2)
-    tabs = fargs[7:10]
-    # the work this frame's data needs: its plain version with POST's inputs
-    # counted (live rays per bounce, fetches that read an atlas)
-    bounce_live, fetched = [], [0, 0]
 
-    def counting_post(state, *rest):
-        m = state[F.SURF] > 0
-        bounce_live.append((rest[-2], int(m.sum())))
-        for k, tab in enumerate(tabs):
-            hits = int((state[F.TEXIN + 2 + k][m] != -1.0).sum())
-            fetched[0] += hits
-            fetched[1] += hits if tab.texels.dtype == torch.uint8 else 0
-        return F.sp_post_plain(state, *rest)
+    def frame_bound(fargs, cfg):
+        """The work this frame's data needs of fused_frame: its plain
+        version with POST's inputs counted (live rays per bounce, fetches
+        that read an atlas) and every cast counted per pair up to its
+        reject (table_cast_ops). (bound, live ray-bounces, atlas fetches,
+        the live share of a block-wide schedule's lane-slots: a block of
+        128 rays runs a sample's bounce b while any of its rays is live
+        there)."""
+        tabs = fargs[7:10]
+        nf = fargs[0].shape[1]
+        frec = F.record_from_w4(fargs[2])
+        bounce_live, fetched, cast_ops, block_slots = [], [0, 0], [0], [0]
+        per_ray = torch.zeros(nf, dtype=torch.int32, device=dev)
 
-    F.split_frame(*fargs[:7], wb, *fargs[10:], F.sp_pre_plain, counting_post)
-    nf, tpf = fargs[0].shape[1], fargs[2].shape[1]
-    n_lights, lights_on = wb.lights.shape[0], int((wb.lights[:, 1, 0] > 0).sum())
-    table_bytes = sum(t.numel() * t.element_size() for tab in tabs for t in tab)
-    nbytes = (f32 * (5 + F.FR_C) * nf + table_bytes
-              + sum(t.numel() * t.element_size() for t in fargs[2:7] + fargs[10:13]))
-    ops = (nf * (OPS_MAKE_RAY + tpf * OPS_CLOSEST_TEST + OPS_FRAME_RAY)
-           + cfg2.samples_per_ray * nf * (OPS_BOUNCE_PRE + OPS_FRAME_SAMPLE)
-           + (cfg2.samples_per_ray - 1) * 3 * nf
-           + fetched[0] * OPS_TEX_FETCH + fetched[1] * OPS_TEX_U8)
-    for i, live in bounce_live:
-        nxt = i + 1 < cfg2.max_reflections
-        ops += live * (3 * OPS_TEX_MISS + shade_ops(i, n_lights, lights_on) + OPS_MAKE_RAY
-                       + OPS_ANY_TEST + OPS_APPLY
-                       + (OPS_MAKE_RAY + tpf * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE if nxt else 0))
-    check("fused_frame", f"wave, {nf} rays, 2 spp x {cfg2.max_reflections} bounces, "
-          f"{sum(x for _, x in bounce_live)} live ray-bounces, {fetched[0]} atlas fetches",
-          fargs, bound(nbytes, ops))
-    del fargs, wb, we
+        def counting_post(state, *rest):
+            m = state[F.SURF] > 0
+            bounce_live.append((rest[-2], int(m.sum())))
+            per_ray.add_(m.to(torch.int32))
+            if rest[-2] + 1 == cfg.max_reflections:
+                blocks = torch.nn.functional.pad(per_ray, (0, -nf % 128)).reshape(-1, 128)
+                block_slots[0] += 128 * int(blocks.amax(dim=1).sum())
+                per_ray.zero_()
+            for k, tab in enumerate(tabs):
+                hits = int((state[F.TEXIN + 2 + k][m] != -1.0).sum())
+                fetched[0] += hits
+                fetched[1] += hits if tab.texels.dtype == torch.uint8 else 0
+            return F.sp_post_plain(state, *rest)
+
+        def count_cast(closest, o3, d3, ml, edge, hit):
+            cast_ops[0] += table_cast_ops(frec, closest, o3, d3, ml, edge, hit)
+
+        plain_casts(lambda: F.split_frame(*fargs[:7], wb, *fargs[10:], F.sp_pre_plain,
+                                          counting_post), (), count_cast)
+        n_lights, lights_on = wb.lights.shape[0], int((wb.lights[:, 1, 0] > 0).sum())
+        table_bytes = sum(t.numel() * t.element_size() for tab in tabs for t in tab)
+        nbytes = (f32 * (5 + F.FR_C) * nf + table_bytes
+                  + sum(t.numel() * t.element_size() for t in fargs[2:7] + fargs[10:13]))
+        spp = cfg.samples_per_ray
+        ops = (nf * OPS_FRAME_RAY + spp * nf * (OPS_BOUNCE_PRE + OPS_FRAME_SAMPLE)
+               + (spp - 1) * 3 * nf + fetched[0] * OPS_TEX_FETCH + fetched[1] * OPS_TEX_U8
+               + cast_ops[0])
+        for i, live in bounce_live:
+            nxt = i + 1 < cfg.max_reflections
+            ops += live * (3 * OPS_TEX_MISS + shade_ops(i, n_lights, lights_on) + OPS_APPLY
+                           + (OPS_BOUNCE_PRE if nxt else 0))
+        live_bounces = sum(x for _, x in bounce_live)
+        return bound(nbytes, ops), live_bounces, fetched[0], live_bounces / block_slots[0]
+
+    for spp in (1, 2):
+        cfg_s = config.replace(samples_per_ray=spp)
+        fargs = fused_frame_args(wb, we.camera, cfg_s)
+        nf = fargs[0].shape[1]
+        bnd, live_bounces, fetches, block_share = frame_bound(fargs, cfg_s)
+        k_ms, p_ms = check("fused_frame", f"wave, {nf} rays, {spp} spp x "
+                           f"{cfg_s.max_reflections} bounces, {live_bounces} live ray-bounces, "
+                           f"{fetches} atlas fetches", fargs, bnd, main=(spp == 1))
+        stats = torch.zeros(2, dtype=torch.int32, device=dev)
+        KERNELS.fused_frame(*fargs, lane_stats=stats)
+        lanes, busy = stats.tolist()
+        if busy != live_bounces:
+            fail(f"fused_frame ran {busy} live ray-bounces, its plain version {live_bounces}")
+        print(f"[frame] fused_frame, {spp} spp: {live_bounces} live ray-bounces; {busy} of "
+              f"{lanes} lane-slots did live work ({busy / lanes:.4f}; a block-wide schedule of "
+              f"the same frame: {block_share:.4f})", flush=True)
+        del fargs
+    # the kernels line keeps the 1-spp frame's numbers; the 2-spp launch's too
+    results["fused_frame"].update(ms_2spp=k_ms, plain_ms_2spp=p_ms, bound_ms_2spp=bnd[0])
+    del wb, we
     torch.cuda.empty_cache()
 
     # the traversal (scheme="kernel")
@@ -788,37 +947,6 @@ def drive(args, dev, smi: str) -> int:
         tiles = int(torch.unique(tlist[used]).numel())
         return f32 * (int(slots.sum()) + tiles * TRI_TILE * REC)
 
-    def rec_test_ops(det, udet, vdet, sdet, ml, edge, closest):
-        """int32 per pair: the operations of sparse.cu's test of each (ray,
-        triangle) pair with these products, up to the reject that takes it
-        (OPS_REC_*)."""
-        cull = not closest or edge > 0
-        if closest:
-            go, pos = det.abs() >= BIAS, det > 0
-
-            def sign(x):
-                return torch.where(pos, x > 0, x < 0)
-        else:
-            go = det >= BIAS
-
-            def sign(x):
-                return x > 0
-        ops = torch.full(det.shape, OPS_REC_DET, dtype=torch.int32, device=det.device)
-        ops += go * OPS_REC_SDET[closest]
-        go &= sign(sdet)
-        for x in (udet, vdet):
-            ops += go * (OPS_REC_UV + cull)
-            if cull:
-                go &= sign(x)
-        ops += go * OPS_REC_DIVIDE
-        inv = 1.0 / det
-        u, v, s = udet * inv, vdet * inv, sdet * inv
-        for step, ok in ((1, u >= edge), (1, u <= 1.0), (1, v >= edge), (2, u + v <= 1.0),
-                         (1, s > BIAS), (1, s <= ml)):
-            ops += go * step
-            go &= ok
-        return ops + go if closest else ops
-
     def needed_test_ops(a, needed, closest, edge):
         """The operations of the tests the walk cannot skip: each ray
         against the 128 triangles of the first needed[rt, r] slots of its
@@ -911,8 +1039,7 @@ def drive(args, dev, smi: str) -> int:
         occluded = int((out & (ml > 0)).sum())
         needed = torch.where(open_, counts[:, None].long(), 0)
         tests = occluded + int(needed.sum()) * TRI_TILE
-        accept = OPS_REC_DET + OPS_REC_SDET[False] + 2 * (OPS_REC_UV + 1) + OPS_REC_DIVIDE + 7
-        ops = occluded * accept + needed_test_ops(a, needed, False, BIAS)
+        ops = occluded * OPS_REC_ACCEPT + needed_test_ops(a, needed, False, BIAS)
         open_rays = open_.sum(dim=1)
         slots = torch.where(open_rays > 0, counts, torch.minimum(counts, live.any(dim=1).int()))
         nbytes = f32 * (7 * n + rt) + n + tile_bytes(tlist, slots)
@@ -999,10 +1126,13 @@ def drive(args, dev, smi: str) -> int:
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the frames of phases 4-7, through the user's entry points ----------
+    # every kernel wrapper with its count: the KernelSet's and POST's list
+    counted = list(zip(KernelSet._fields, KERNELS)) + [("sp_live_list", SK.sp_live_list)]
+
     def drive_frames(label, renderer, n_frames, step=None):
         """render_frame() n_frames times with every count set to 0 just
         before; (frames, launches of the run)."""
-        for k in KERNELS:
+        for _, k in counted:
             k.launches = 0
         frames, frame_ms = [], []
         torch.cuda.reset_peak_memory_stats()
@@ -1012,7 +1142,7 @@ def drive(args, dev, smi: str) -> int:
             t = time.perf_counter()
             frames.append(renderer.render_frame())
             frame_ms.append((time.perf_counter() - t) * 1000.0)
-        counts = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)}
+        counts = {name: k.launches for name, k in counted}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[{label}] {n_frames} frames, scheme {renderer.resolved_scheme()!r}, "
               f"shade_kernel {renderer.shade_kernel}: ms per frame "
@@ -1063,7 +1193,8 @@ def drive(args, dev, smi: str) -> int:
     if scheme != "fused_split":
         fail("the main path must take scheme='fused_split'")
     frames, launches = drive_frames("main", e.renderer, args.frames)
-    expect_launches("the main path", launches, args.frames, {"sp_pre": 1, "sp_post": bounces})
+    expect_launches("the main path", launches, args.frames,
+                    {"sp_pre": 1, "sp_post": bounces, "sp_live_list": bounces})
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if launches[name] == 0]
     if idle:
@@ -1085,7 +1216,7 @@ def drive(args, dev, smi: str) -> int:
     e.renderer.scheme = "kernel"
     frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer, n2)
     idle = [name for name, c in kernel_launches.items()
-            if c == 0 and name not in in_place + sparse_names + ("fused_frame",)]
+            if c == 0 and name not in in_place + sparse_names + ("fused_frame", "sp_live_list")]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
@@ -1171,8 +1302,8 @@ def drive(args, dev, smi: str) -> int:
           f"{e.renderer.resolved_scheme()!r}", flush=True)
     frames, fused_launches = drive_frames("fused-path", e.renderer, args.frames, step=animate)
     expect_launches("wave on scheme='fused'", fused_launches, args.frames,
-                    {"fused_frame": 1, "sp_pre": 0, "sp_post": 0, "closest_hit": 0,
-                     "any_hit": 0, "shade": 0, "interp_shade": 0})
+                    {"fused_frame": 1, "sp_pre": 0, "sp_post": 0, "sp_live_list": 0,
+                     "closest_hit": 0, "any_hit": 0, "shade": 0, "interp_shade": 0})
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if fused_launches[name] == 0]
     if idle:
@@ -1214,7 +1345,7 @@ def drive(args, dev, smi: str) -> int:
     launches["shade"] = shade_launches["shade"]
     launches["fused_frame"] = fused_launches["fused_frame"]
     kernels = []
-    for name, k in zip(KernelSet._fields, KERNELS):
+    for name, k in counted:
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
                         **results[name]})

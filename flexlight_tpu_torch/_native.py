@@ -59,15 +59,19 @@ SIGNATURES = {
     "fl_fxaa": [_P, _I, _I, _P, _P],
     # state, dirs, w4, tp, ids, mat, cam, resample, min_importance, n, stream
     "fl_sp_pre": [_P, _P, _P, _I, _P, _P, _P, _I, _F, _I, _P],
+    # state, n, list, count, stream
+    "fl_sp_live_list": [_P, _I, _P, _P, _P],
     # state, tex, ndc, w4, tp, ids, mat, lights, n_lights, cam, random_seed,
-    # cos_sample_n, bounce, do_next, counter, min_importance, n, stream
-    "fl_sp_post": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _F, _I, _P],
+    # cos_sample_n, bounce, do_next, counter, min_importance, n, list, count
+    # (fl_sp_live_list's), stream
+    "fl_sp_post": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _F, _I,
+                   _P, _P, _P],
     # out, dirs, ndc, w4, tp, ids, mat, lights, n_lights, ambient, then per
     # atlas (albedo, pbr, tpo) texels, u8, tile_info, n_slots, meta; cam,
     # seed, cos_samples, spp, inv_spp, bounces, counter, min_importance, n,
-    # stream
+    # ray_counter, lane_stats, stream
     "fl_fused_frame": [_P] * 4 + [_I, _P, _P, _P, _I, _P] + [_P, _I, _P, _I, _P] * 3
-                      + [_P] * 3 + [_I, _F, _I, _I, _F, _I, _P],
+                      + [_P] * 3 + [_I, _F, _I, _I, _F, _I, _P, _P, _P],
     # amin, amax, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, rt, out, stream
     "fl_sparse_flags": [_P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
     # bmin, bmax, nb, ox, oy, oz, dx, dy, dz, max_len, n, key, stream
@@ -222,7 +226,8 @@ class Kernel:
     launches the CUDA kernel or raises (there is no fallback).
     `launches` counts the kernel's launches and nothing else.
     `launch(lib, stream, *args)` checks its arguments, allocates the
-    outputs and calls the C entry point."""
+    outputs and calls the C entry point; `run` launches and counts, for a
+    wrapper that launches another kernel before its own."""
 
     def __init__(self, name: str, plain, launch, source: str, replaces: str):
         self.name = name
@@ -242,7 +247,9 @@ class Kernel:
         if t.device.type != "cuda":
             raise ValueError(f"{self.name}: tensors on {t.device} are neither "
                              "CPU nor CUDA tensors")
-        stream = torch.cuda.current_stream(t.device).cuda_stream
+        return self.run(lib, torch.cuda.current_stream(t.device).cuda_stream, *args, **kwargs)
+
+    def run(self, lib, stream, *args, **kwargs):
         out = self.launch(lib, stream, *args, **kwargs)
         self.launches += 1
         return out

@@ -20,6 +20,8 @@
 
 #ifdef FL_EMULATE
 
+#include <vector>
+
 struct fl_dim3 { unsigned x, y, z; };
 static thread_local fl_dim3 threadIdx, blockIdx, blockDim, gridDim;
 #define __global__
@@ -58,6 +60,7 @@ static inline float __uint_as_float(unsigned u) {
 // the lanes of a warp: a block of one thread is a warp of one lane
 #define FL_WARP_LANES 1
 struct alignas(16) float4 { float x, y, z, w; };
+static inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 static inline void fl_cp_async16(float4* dst, const float4* src) { *dst = *src; }
 static inline void fl_cp_async_commit() {}
 template <int N> static inline void fl_cp_async_wait() {}
@@ -82,6 +85,17 @@ template <int N> static inline void fl_cp_async_wait() {}
         FL_LAUNCH(kernel, n_blocks, 1, stream, __VA_ARGS__);             \
     } while (0)
 
+// The block's dynamic shared memory, `smem` bytes of the launch
+// (FL_LAUNCH_BLOCKS_SMEM): one host buffer.
+static thread_local std::vector<float4> fl_dyn_smem;
+#define FL_DYN_SHARED(type, name) type* name = (type*)fl_dyn_smem.data()
+#define FL_LAUNCH_BLOCKS_SMEM(kernel, n_blocks, block, smem, stream, ...) \
+    do {                                                                 \
+        fl_dyn_smem.assign(((size_t)(smem) + 15) / 16, float4{});        \
+        FL_LAUNCH_BLOCKS(kernel, n_blocks, block, stream, __VA_ARGS__);  \
+    } while (0)
+#define FL_ZERO_ASYNC(ptr, bytes, stream) ((void)(stream), memset((ptr), 0, (bytes)), 0)
+
 #else
 
 #include <cuda_runtime.h>
@@ -98,6 +112,19 @@ template <int N> static inline void fl_cp_async_wait() {}
         kernel<<<(unsigned)(n_blocks), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__); \
         return (int)cudaGetLastError();                                  \
     } while (0)
+
+// FL_LAUNCH_BLOCKS with `smem` bytes of dynamic shared memory, which the
+// kernel names with FL_DYN_SHARED (above 48 KB the kernel must first be
+// allowed it: cudaFuncSetAttribute).
+#define FL_DYN_SHARED(type, name) extern __shared__ type name[]
+#define FL_LAUNCH_BLOCKS_SMEM(kernel, n_blocks, block, smem, stream, ...) \
+    do {                                                                 \
+        kernel<<<(unsigned)(n_blocks), (block), (smem), (cudaStream_t)(stream)>>>(__VA_ARGS__); \
+        return (int)cudaGetLastError();                                  \
+    } while (0)
+// zero `bytes` at device pointer `ptr` on the stream; 0 or the CUDA error
+#define FL_ZERO_ASYNC(ptr, bytes, stream) \
+    ((int)cudaMemsetAsync((ptr), 0, (bytes), (cudaStream_t)(stream)))
 
 // 16 bytes from device memory to shared memory without the registers
 // (cp.async, Ampere and later: both addresses 16-byte aligned); a thread's

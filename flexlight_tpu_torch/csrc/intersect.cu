@@ -18,8 +18,7 @@
 // MXU scheduling and are left out: a ray that is dead (max_len 0) can hit
 // nothing and exits at once, and an any-hit ray leaves the loop at its
 // first valid triangle. The traversal itself (fl_block_closest /
-// fl_block_any) lives in trace.cuh, which the fused per-bounce kernels
-// (fused.cu) share.
+// fl_block_any) lives in trace.cuh, which PRE (fused.cu) shares.
 #include "trace.cuh"
 
 #define FL_RAY_BLOCK 128

@@ -40,8 +40,9 @@
 //   built without FMA contraction, so unfused fp32 issues at half the rate
 //   the bound counts). What keeps the work per test and the tests per ray
 //   down, and the late bounces' few live rays busy:
-//   * the record: each triangle is 16 floats (ops/intersect_sparse.py
-//     tri_record: n, v0.n, e2 x v0, v0 x e1, e2, e1), the distinct
+//   * the record (trace.cuh, shared with fused.cu): each triangle is 16
+//     floats (ops/intersect_sparse.py tri_record: n, v0.n, e2 x v0,
+//     v0 x e1, e2, e1), the distinct
 //     magnitudes of the 25 non-zero terms of its 64-float W rows. A test
 //     reads 4 x 16 B from shared memory and sums only the non-zero terms
 //     in W's k order, the signs as exact negations (24 multiplies, 21
@@ -516,115 +517,19 @@ fl_sparse_key_kernel(const float* __restrict__ bmin, const float* __restrict__ b
 #define FL_SUB_LANES 8
 #endif
 
-// A ray of the worklist casts: origin, direction (a zero direction becomes
-// +z, as fl_make_ray) and the components of vec(d (x) o) that meet the
-// record's non-zero terms (k = 8, 9, 10, 12, 13, 14 of ray_features).
-struct fl_rray {
-    float o[3], d[3];
-    float f8, f9, f10, f12, f13, f14;
-    float max_len;
-};
-
+// A ray of the worklist casts (trace.cuh fl_rray) from its SoA channels;
+// whether it is live (max_len > 0).
 __device__ __forceinline__ bool fl_rec_ray(int i, int n, const float* ox, const float* oy,
                                            const float* oz, const float* dx, const float* dy,
                                            const float* dz, const float* max_len, fl_rray& r) {
     if (i >= n) return false;
-    float o[3] = {ox[i], oy[i], oz[i]};
-    float d[3] = {dx[i], dy[i], dz[i]};
-    float norm2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    if (norm2 <= 0.0f) { d[0] = 0.0f; d[1] = 0.0f; d[2] = 1.0f; }
-    for (int k = 0; k < 3; ++k) {
-        r.o[k] = o[k];
-        r.d[k] = d[k];
-    }
-    r.f8 = d[0] * o[1];
-    r.f9 = d[0] * o[2];
-    r.f10 = d[1] * o[0];
-    r.f12 = d[1] * o[2];
-    r.f13 = d[2] * o[0];
-    r.f14 = d[2] * o[1];
-    r.max_len = max_len[i];
+    fl_make_rray(fl_make3(ox[i], oy[i], oz[i]), fl_make3(dx[i], dy[i], dz[i]), max_len[i], r);
     return r.max_len > 0.0f;
-}
-
-// The four products of a record (quads a = (n, v0.n), b = (e2 x v0,
-// (v0 x e1).x), c = ((v0 x e1).yz, e2.xy), e = (e2.z, e1)) with a ray: the
-// non-zero terms of tri_rows in k order (ops/intersect_sparse_kernel.py
-// record_products takes the same operations).
-__device__ __forceinline__ float fl_rec_det(float4 a, const fl_rray& r) {
-    return -((a.x * r.d[0] + a.y * r.d[1]) + a.z * r.d[2]);
-}
-
-__device__ __forceinline__ float fl_rec_sdet(float4 a, const fl_rray& r) {
-    return ((a.x * r.o[0] - a.w) + a.y * r.o[1]) + a.z * r.o[2];
-}
-
-__device__ __forceinline__ float fl_rec_udet(float4 b, float4 c, float4 e, const fl_rray& r) {
-    return -((b.x * r.d[0] + b.y * r.d[1]) + b.z * r.d[2]) - e.x * r.f8 + c.w * r.f9
-           + e.x * r.f10 - c.z * r.f12 - c.w * r.f13 + c.z * r.f14;
-}
-
-__device__ __forceinline__ float fl_rec_vdet(float4 b, float4 c, float4 e, const fl_rray& r) {
-    return -((b.w * r.d[0] + c.x * r.d[1]) + c.y * r.d[2]) + e.w * r.f8 - e.z * r.f9
-           - e.w * r.f10 + e.y * r.f12 + e.z * r.f13 - e.y * r.f14;
-}
-
-// x non-zero with the sign of det (false for NaN)
-__device__ __forceinline__ bool fl_sign_of(float x, bool det_pos) {
-    return det_pos ? x > 0.0f : x < 0.0f;
 }
 
 // A staged tile: quad p of triangle t's record at [p][t], so that lanes
 // reading neighbouring triangles read neighbouring 16-byte words.
 typedef float4 fl_tile[4][FL_SPARSE_TRI_TILE];
-
-// The two-sided closest-hit test of staged triangle t against ray r: the
-// accept window of fl_mt_closest, after the exact early rejects.
-// `cull_uv`: the window's u / v edge is above 0 (bounce casts).
-__device__ __forceinline__ bool fl_rec_closest(const fl_tile& q, int t, const fl_rray& r,
-                                               float edge, bool cull_uv, float& s, float& u,
-                                               float& v) {
-    float4 a = q[0][t];
-    float det = fl_rec_det(a, r);
-    if (!(fabsf(det) >= FL_BIAS)) return false;
-    bool pos = det > 0.0f;
-    float sdet = fl_rec_sdet(a, r);
-    if (!fl_sign_of(sdet, pos)) return false;             // s <= 0
-    float4 b = q[1][t], c = q[2][t], e = q[3][t];
-    float udet = fl_rec_udet(b, c, e, r);
-    if (cull_uv && !fl_sign_of(udet, pos)) return false;  // u <= 0 < edge
-    float vdet = fl_rec_vdet(b, c, e, r);
-    if (cull_uv && !fl_sign_of(vdet, pos)) return false;  // v <= 0 < edge
-    float inv = 1.0f / det;
-    u = udet * inv;
-    v = vdet * inv;
-    s = sdet * inv;
-    bool valid = (u >= edge) && (u <= 1.0f);
-    valid = valid && (v >= edge) && (u + v <= 1.0f);
-    return valid && (s > FL_BIAS) && (s <= r.max_len);
-}
-
-// The front-face-culled any-hit test of staged triangle t (the window of
-// fl_mt_any, whose u / v edge is BIAS), after the exact early rejects.
-__device__ __forceinline__ bool fl_rec_any(const fl_tile& q, int t, const fl_rray& r) {
-    float4 a = q[0][t];
-    float det = fl_rec_det(a, r);
-    if (!(det >= FL_BIAS)) return false;
-    float sdet = fl_rec_sdet(a, r);
-    if (!(sdet > 0.0f)) return false;
-    float4 b = q[1][t], c = q[2][t], e = q[3][t];
-    float udet = fl_rec_udet(b, c, e, r);
-    if (!(udet > 0.0f)) return false;
-    float vdet = fl_rec_vdet(b, c, e, r);
-    if (!(vdet > 0.0f)) return false;
-    float inv = 1.0f / det;
-    float u = udet * inv;
-    float v = vdet * inv;
-    float s = sdet * inv;
-    bool valid = (u >= FL_BIAS) && (u <= 1.0f);
-    valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
-    return valid && (s > FL_BIAS) && (s <= r.max_len);
-}
 
 // The lanes of this thread's warp that the block has.
 __device__ __forceinline__ unsigned fl_warp_mask() {

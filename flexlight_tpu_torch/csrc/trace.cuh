@@ -9,8 +9,10 @@
 //   vec3 helpers        ops/vec3.py
 //   both noise hashes   ops/rng.py (noise4, noise4_counter)
 //   the BRDF            ops/brdf.py (forward_trace_soa)
-//   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]),
-//                       which the sparse worklist kernels (sparse.cu) share
+//   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]:
+//                       intersect.cu, PRE) and its 16-float triangle record
+//                       (ops/intersect_sparse_kernel.py record_products:
+//                       sparse.cu's worklist casts, POST and FRAME)
 //   bounce stages       ops/pathtrace.py bounce_pre, bounce_shade (with
 //                       reservoir_select), bounce_apply, over the carry
 //                       rows of a state block (ops/fused.py's layout)
@@ -384,6 +386,193 @@ __device__ __forceinline__ bool fl_block_any(const float* __restrict__ w4, int t
         __syncthreads();
     }
     return hit;
+}
+
+// ---- the 16-float triangle record (ops/intersect_sparse.py tri_record) ----
+//
+// n, v0.n, e2 x v0, v0 x e1, e2, e1: the distinct magnitudes of the 25
+// non-zero terms of a triangle's 64-float W rows. A test sums only those
+// terms, in W's k order, the signs as exact negations (24 multiplies, 21
+// adds), so det, udet, vdet and sdet equal the 64-term sums of
+// fl_mt_closest / fl_mt_any wherever W's zero products meet finite ray
+// features (a zero may differ in sign). The worklist casts (sparse.cu) and
+// POST and FRAME (fused.cu) test it. Quads: a = (n, v0.n), b = (e2 x v0,
+// (v0 x e1).x), c = ((v0 x e1).yz, e2.xy), e = (e2.z, e1).
+
+// A ray of the record test: origin, direction (a zero direction becomes
+// +z, as fl_make_ray) and the components of vec(d (x) o) that meet the
+// record's non-zero terms (k = 8, 9, 10, 12, 13, 14 of ray_features).
+struct fl_rray {
+    float o[3], d[3];
+    float f8, f9, f10, f12, f13, f14;
+    float max_len;
+};
+
+__device__ __forceinline__ void fl_make_rray(fl_v3 o3, fl_v3 d3, float max_len, fl_rray& r) {
+    float o[3] = {o3.x, o3.y, o3.z};
+    float d[3] = {d3.x, d3.y, d3.z};
+    float norm2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    if (norm2 <= 0.0f) { d[0] = 0.0f; d[1] = 0.0f; d[2] = 1.0f; }
+    for (int k = 0; k < 3; ++k) {
+        r.o[k] = o[k];
+        r.d[k] = d[k];
+    }
+    r.f8 = d[0] * o[1];
+    r.f9 = d[0] * o[2];
+    r.f10 = d[1] * o[0];
+    r.f12 = d[1] * o[2];
+    r.f13 = d[2] * o[0];
+    r.f14 = d[2] * o[1];
+    r.max_len = max_len;
+}
+
+// The four products of a record with a ray: the non-zero terms of tri_rows
+// in k order (ops/intersect_sparse_kernel.py record_products takes the same
+// operations).
+__device__ __forceinline__ float fl_rec_det(float4 a, const fl_rray& r) {
+    return -((a.x * r.d[0] + a.y * r.d[1]) + a.z * r.d[2]);
+}
+
+__device__ __forceinline__ float fl_rec_sdet(float4 a, const fl_rray& r) {
+    return ((a.x * r.o[0] - a.w) + a.y * r.o[1]) + a.z * r.o[2];
+}
+
+__device__ __forceinline__ float fl_rec_udet(float4 b, float4 c, float4 e, const fl_rray& r) {
+    return -((b.x * r.d[0] + b.y * r.d[1]) + b.z * r.d[2]) - e.x * r.f8 + c.w * r.f9
+           + e.x * r.f10 - c.z * r.f12 - c.w * r.f13 + c.z * r.f14;
+}
+
+__device__ __forceinline__ float fl_rec_vdet(float4 b, float4 c, float4 e, const fl_rray& r) {
+    return -((b.w * r.d[0] + c.x * r.d[1]) + c.y * r.d[2]) + e.w * r.f8 - e.z * r.f9
+           - e.w * r.f10 + e.y * r.f12 + e.z * r.f13 - e.y * r.f14;
+}
+
+// x non-zero with the sign of det (false for NaN)
+__device__ __forceinline__ bool fl_sign_of(float x, bool det_pos) {
+    return det_pos ? x > 0.0f : x < 0.0f;
+}
+
+// The two-sided closest-hit test of triangle t against ray r: the accept
+// window of fl_mt_closest, after exact early rejects, each taking only
+// pairs that the window rejects too (no comparison lets a NaN through):
+// |det| < BIAS; sdet zero or of the other sign than det (s <= 0); and,
+// with `cull_uv` (the window's u / v edge is above 0: bounce casts), udet
+// or vdet zero or of the other sign (u <= 0 or v <= 0). A surviving pair
+// takes 1 / det, u, v and s in the plain version's order. `q[p][t]` is
+// quad p of triangle t's record (a staged tile of sparse.cu, or
+// fl_rec_table).
+template <typename Q>
+__device__ __forceinline__ bool fl_rec_closest(const Q& q, int t, const fl_rray& r, float edge,
+                                               bool cull_uv, float& s, float& u, float& v) {
+    float4 a = q[0][t];
+    float det = fl_rec_det(a, r);
+    if (!(fabsf(det) >= FL_BIAS)) return false;
+    bool pos = det > 0.0f;
+    float sdet = fl_rec_sdet(a, r);
+    if (!fl_sign_of(sdet, pos)) return false;             // s <= 0
+    float4 b = q[1][t], c = q[2][t], e = q[3][t];
+    float udet = fl_rec_udet(b, c, e, r);
+    if (cull_uv && !fl_sign_of(udet, pos)) return false;  // u <= 0 < edge
+    float vdet = fl_rec_vdet(b, c, e, r);
+    if (cull_uv && !fl_sign_of(vdet, pos)) return false;  // v <= 0 < edge
+    float inv = 1.0f / det;
+    u = udet * inv;
+    v = vdet * inv;
+    s = sdet * inv;
+    bool valid = (u >= edge) && (u <= 1.0f);
+    valid = valid && (v >= edge) && (u + v <= 1.0f);
+    return valid && (s > FL_BIAS) && (s <= r.max_len);
+}
+
+// The front-face-culled any-hit test of triangle t (the window of
+// fl_mt_any, whose u / v edge is BIAS), after the exact early rejects.
+template <typename Q>
+__device__ __forceinline__ bool fl_rec_any(const Q& q, int t, const fl_rray& r) {
+    float4 a = q[0][t];
+    float det = fl_rec_det(a, r);
+    if (!(det >= FL_BIAS)) return false;
+    float sdet = fl_rec_sdet(a, r);
+    if (!(sdet > 0.0f)) return false;
+    float4 b = q[1][t], c = q[2][t], e = q[3][t];
+    float udet = fl_rec_udet(b, c, e, r);
+    if (!(udet > 0.0f)) return false;
+    float vdet = fl_rec_vdet(b, c, e, r);
+    if (!(vdet > 0.0f)) return false;
+    float inv = 1.0f / det;
+    float u = udet * inv;
+    float v = vdet * inv;
+    float s = sdet * inv;
+    bool valid = (u >= FL_BIAS) && (u <= 1.0f);
+    valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
+    return valid && (s > FL_BIAS) && (s <= r.max_len);
+}
+
+// A whole scene's records in shared memory, triangle t's four quads at
+// rec[4t .. 4t + 3] (64 bytes), read as q[p][t].
+struct fl_rec_table {
+    const float4* rec;
+    struct quad {
+        const float4* p;
+        __device__ __forceinline__ float4 operator[](int t) const { return p[4 * t]; }
+    };
+    __device__ __forceinline__ quad operator[](int p) const { return {rec + p}; }
+};
+
+// Every thread of the block builds its share of the records of W[4, tp, 16]
+// into `rec` (4 * tp quads): each value is one of W's entries or its exact
+// negation (ops/intersect_kernel.py tri_rows: det = [0, 0, -n, 0],
+// udet = [0, 0, -(e2 x v0), skew(e2)], vdet = [0, 0, -(v0 x e1), -skew(e1)],
+// sdet = [-v0.n, n, 0, 0]), so the table equals tri_record's. The caller
+// publishes it with a barrier.
+__device__ __forceinline__ void fl_rec_stage(const float* __restrict__ w4, int tp,
+                                             float4* rec) {
+    for (int t = threadIdx.x; t < tp; t += blockDim.x) {
+        const float* u = w4 + ((size_t)tp + t) * 16;
+        const float* v = w4 + ((size_t)2 * tp + t) * 16;
+        const float* s = w4 + ((size_t)3 * tp + t) * 16;
+        rec[4 * t] = make_float4(s[1], s[2], s[3], -s[0]);
+        rec[4 * t + 1] = make_float4(-u[4], -u[5], -u[6], -v[4]);
+        rec[4 * t + 2] = make_float4(-v[5], -v[6], u[14], u[9]);
+        rec[4 * t + 3] = make_float4(u[10], v[12], v[13], v[8]);
+    }
+}
+
+// Closest hit of one ray over the whole table, in this thread alone (no
+// barrier): ties in s go to the lowest column; on a miss s, u, v are 0
+// and col is -1 (fl_block_closest's result).
+__device__ __forceinline__ fl_hit fl_table_closest(const float4* rec, int tp, const fl_rray& r,
+                                                   float edge) {
+    fl_rec_table q = {rec};
+    bool cull_uv = edge > 0.0f;
+    float best_s = FL_POW32, best_u = 0.0f, best_v = 0.0f;
+    int best_col = -1;
+    for (int t = 0; t < tp; ++t) {
+        float s, u, v;
+        if (fl_rec_closest(q, t, r, edge, cull_uv, s, u, v) && s < best_s) {
+            best_s = s;
+            best_u = u;
+            best_v = v;
+            best_col = t;
+        }
+    }
+    fl_hit h;
+    bool hit = best_col >= 0;
+    h.s = hit ? best_s : 0.0f;
+    h.u = hit ? best_u : 0.0f;
+    h.v = hit ? best_v : 0.0f;
+    h.col = best_col;
+    return h;
+}
+
+// Front-face-culled any hit within r.max_len over the whole table, in this
+// thread alone, up to the first triangle that occludes (fl_block_any's
+// result). A ray with max_len <= 0 (or NaN) can have no hit (s > BIAS).
+__device__ __forceinline__ bool fl_table_any(const float4* rec, int tp, const fl_rray& r) {
+    if (!(r.max_len > 0.0f)) return false;
+    fl_rec_table q = {rec};
+    for (int t = 0; t < tp; ++t)
+        if (fl_rec_any(q, t, r)) return true;
+    return false;
 }
 
 // ---- the bounce stages (ops/pathtrace.py), shared by fused.cu and shade.cu --

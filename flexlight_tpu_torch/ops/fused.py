@@ -226,6 +226,30 @@ def sp_post_plain(state, tex, ndc, w4, ids, mat, lights, cam, random_seed: float
     return state
 
 
+def record_from_w4(w4):
+    """[T, 16] f32: the triangle records that POST and FRAME build from W
+    [4, T, 16] (csrc/trace.cuh fl_rec_stage): n, v0.n, e2 x v0, v0 x e1, e2,
+    e1, each one of W's entries or its exact negation, so the records are
+    ops.intersect_sparse.tri_record's."""
+    _, u, v, s = w4
+    return torch.stack([s[:, 1], s[:, 2], s[:, 3], -s[:, 0], -u[:, 4], -u[:, 5], -u[:, 6],
+                        -v[:, 4], -v[:, 5], -v[:, 6], u[:, 14], u[:, 9], u[:, 10], v[:, 12],
+                        v[:, 13], v[:, 8]], dim=-1)
+
+
+def live_list_plain(state):
+    """The live-ray list kernel's plain version (part of kernel 5: POST
+    walks the list): (list [N] int32, count [1] int32), the indices of the
+    rays with m = 1 in ascending order, then -1. The kernel writes the same
+    indices in any order of its warps' runs and leaves the entries past the
+    count unset."""
+    n = state.shape[1]
+    idx = (state[SURF] > 0.0).nonzero().flatten().to(torch.int32)
+    out = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+    out[:idx.shape[0]] = idx
+    return out, torch.tensor([idx.shape[0]], dtype=torch.int32, device=state.device)
+
+
 def split_frame(dirs, ndc, w4, ids, mat, lights, ambient, atlases, cam, seed, cos_samples,
                 config, pre, post):
     """The samples of one frame through `pre`, bounce_tex and `post`

@@ -356,3 +356,117 @@ def test_fused_frame_through_the_kernels(wave_frame, dev):
     b = render_mrt(*args, scheme="fused_split")
     for x, y in zip(a, b):
         assert ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()
+
+
+# ---- POST over its live list and FRAME with lane refill (csrc/fused.cu) -----
+# test_torch_fused_record's cases on the card (imported by the name pytest
+# collects it under, as above)
+
+
+def test_live_list_matches_plain_on_the_card(frame, dev):
+    """The list kernel on the theater frame's state (bounce 0) and on a
+    state with m of every kind: each live ray listed once, in runs of
+    ascending order; two launches list the same rays."""
+    from flexlight_tpu_torch.ops import fused as F
+    from flexlight_tpu_torch.ops import fused_kernel as SK
+
+    state = frame[0]["sp_post"][0].clone()
+    other = torch.zeros((F.SP_C, 100_003), dtype=torch.float32, device=dev)
+    m = np.random.default_rng(5).choice(
+        np.array([1.0, 0.0, -0.0, np.nan, 1e-40, 1.0], dtype=np.float32), 100_003)
+    other[F.SURF] = torch.from_numpy(m).to(dev)
+    for st in (state, other):
+        ref, ref_count = F.live_list_plain(st)
+        k = int(ref_count)
+        assert k > 0
+        for _ in range(2):
+            got, count = SK.sp_live_list(st)
+            torch.cuda.synchronize()
+            assert got.is_cuda and int(count) == k
+            assert torch.equal(got[:k].sort().values, ref[:k])
+
+
+def test_post_launches_are_identical_despite_the_list_order(frame):
+    """Two POST launches on the same state (the list's order may differ
+    between them) give identical states, equal to the plain version's;
+    POST launches the list kernel once a call."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.ops import fused_kernel as SK
+    from test_torch_fused_record import identical
+
+    args = frame[0]["sp_post"]
+    lists = SK.sp_live_list.launches
+    a = KERNELS.sp_post(*_clone(args))
+    b = KERNELS.sp_post(*_clone(args))
+    ref = PLAIN.sp_post(*_clone(args))
+    torch.cuda.synchronize()
+    assert SK.sp_live_list.launches == lists + 2
+    assert torch.equal(a, b) and identical(a, ref)
+
+
+@pytest.mark.parametrize("name", ["det_bias", "det_below_bias", "sdet_zero", "udet_zero",
+                                  "vdet_zero", "u_on_edge", "u_below_edge", "back_face"])
+def test_post_is_exact_on_crafted_reject_edges_on_the_card(dev, name):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from test_torch_fused_record import check_post_edge, identical, post_edge_args
+
+    args, rays = post_edge_args(name, dev)
+    check_post_edge(name, args, rays)
+    got = KERNELS.sp_post(*_clone(args))
+    assert got.is_cuda and identical(got, PLAIN.sp_post(*_clone(args)))
+
+
+@pytest.mark.parametrize("name", ["u_zero", "u_on_edge", "u_past_edge", "det_minus_bias",
+                                  "sdet_zero", "v_zero"])
+def test_frame_is_exact_on_crafted_primary_edges_on_the_card(dev, name):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from test_torch_fused_record import check_frame_edge, frame_edge_args, identical
+
+    args = frame_edge_args(name, dev)
+    check_frame_edge(name, args)
+    got = KERNELS.fused_frame(*args)
+    assert got.is_cuda and identical(got, PLAIN.fused_frame(*args))
+
+
+def test_post_and_frame_at_the_triangle_cap_on_the_card(dev):
+    """The 1024-triangle scene: a 64 KB record table in dynamic shared
+    memory (past the 48 KB that needs the kernels' attribute)."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.ops import fused as F
+    from flexlight_tpu_torch.ops.buffers import build_scene_buffers
+    from test_torch_fused_record import cap_engine, frame_args, identical, post_calls
+
+    e = cap_engine(dev)
+    cfg = Config(temporal=False, filter=False, antialiasing=None, rng="counter",
+                 max_reflections=3, samples_per_ray=2)
+    for a in post_calls(e, 48, cfg, dev):
+        assert a[3].shape[1] == F.MAX_TRIS
+        assert identical(KERNELS.sp_post(*_clone(a)), PLAIN.sp_post(*_clone(a)))
+    args = frame_args(build_scene_buffers(e.scene, dev), e.camera, 48, cfg, dev)
+    got = KERNELS.fused_frame(*args)
+    assert identical(got, PLAIN.fused_frame(*args))
+    assert (got[F.FR_PPART + 3] >= 0).sum() > 100
+
+
+def test_frame_lane_counts_on_the_card(wave_frame, dev):
+    """lane_stats: the lane-steps that ran a bounce are the frame's live
+    ray-bounces (the plain frame's rays with m = 1 over its POST calls),
+    and the warps' lane-steps are whole warps, at least as many."""
+    from flexlight_tpu_torch.ops import fused as F
+    from flexlight_tpu_torch.ops import fused_kernel as SK
+
+    args = wave_frame[0][0]
+    live = [0]
+
+    def counting_post(state, *rest):
+        live[0] += int((state[F.SURF] > 0).sum())
+        return F.sp_post_plain(state, *rest)
+
+    atlases = F._Atlases(*args[7:10])
+    ref = F.split_frame(*args[:7], atlases, *args[10:], F.sp_pre_plain, counting_post)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = SK.fused_frame(*args, lane_stats=stats)
+    torch.cuda.synchronize()
+    lanes, busy = stats.tolist()
+    assert ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all()
+    assert busy == live[0] > 0 and lanes >= busy and lanes % 32 == 0

@@ -55,6 +55,7 @@ PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
          ("fl_sparse_flags", "sparse tile flags"), ("fl_sparse_key", "sparse nearest2 key"),
          ("fl_sparse_closest", "sparse closest hit"), ("fl_sparse_any", "sparse any hit"),
          ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
+         ("fl_sp_live_list", "POST live list (fused)"),
          ("fl_fused_frame", "whole frame (fused)"),
          ("fl_shade", "shade"), ("fl_interp_shade", "interp_shade"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),

@@ -5,21 +5,28 @@
 
 Disassembles the kernel library with the CUDA toolkit's `cuobjdump -sass`
 (the library that `flexlight_tpu_torch._native.library()` builds, unless
---lib names another, e.g. a parent tree's build), finds each kernel's loops
-(a branch back to a lower address closes one) and, for every innermost loop
-(one whose address range holds no other loop's), prints its address range,
-its static instruction count, its FMUL and FMNMX counts and its opcodes by
-count. Where two such ranges overlap (a second back edge into the same
-code), both are printed and marked: the later range's count then takes in
-part of the earlier body and is no loop body of its own. Which loop is which
-test is read off the source (PERF.md names the ranges). Needs the CUDA
-toolkit; the card itself is not used.
+--lib names another, e.g. a parent tree's build). For each kernel it
+prints its instruction count and a digest of its code (every instruction's
+text without its address), so that two builds of an unchanged kernel can
+be told identical. It finds the kernel's loops (a branch back to a lower
+address closes one) and, for every innermost loop (one whose address range
+holds no other loop's), prints its address range, its static instruction
+count, its FMUL and FMNMX counts, its opcodes by count, and its shortest
+path: the fewest instructions an iteration runs, through a conditional
+branch forward into the loop's own tail (an early reject that goes on to
+the next item; the whole body where there is none). Where two such ranges
+overlap (a second back edge into the same code), both are printed and
+marked: the later range's count then takes in part of the earlier body
+and is no loop body of its own. Which loop is which test is read off the
+source (PERF.md names the ranges). Needs the CUDA toolkit; the card itself
+is not used.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import os
 import re
 import shutil
@@ -27,7 +34,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("fl_sparse_flags_kernel", "fl_sparse_key_kernel")
+KERNELS = ("fl_sparse_flags_kernel", "fl_sparse_key_kernel", "fl_sp_post_kernel",
+           "fl_fused_frame_kernel")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
@@ -72,6 +80,23 @@ def innermost_loops(code):
             if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
 
 
+def shortest_path(code, start: int, end: int) -> int:
+    """The fewest instructions of one pass through the loop [start, end]:
+    the whole body, or, through a predicated forward branch whose target
+    lies in the body, the instructions up to the branch and from its target
+    to the back edge."""
+    body = [(a, t) for a, t in code if start <= a <= end]
+    best = len(body)
+    for k, (addr, text) in enumerate(body):
+        if opcode(text) != "BRA" or not text.startswith("@"):
+            continue
+        m = re.search(r"0x([0-9a-f]+)", text.split("BRA", 1)[1])
+        target = int(m.group(1), 16) if m else -1
+        if addr < target <= end:
+            best = min(best, k + 1 + sum(1 for a, _ in body if a >= target))
+    return best
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lib", default=None)
@@ -99,6 +124,8 @@ def main() -> int:
             status = 1
             continue
         code = funcs[names[0]]
+        digest = hashlib.sha256("\n".join(t for _, t in code).encode()).hexdigest()[:16]
+        print(f"[sass] {want}: {len(code)} instructions, code digest {digest}", flush=True)
         loops = innermost_loops(code)
         for start, end in loops:
             body = [t for a, t in code if start <= a <= end]
@@ -107,8 +134,9 @@ def main() -> int:
                       if (a, b) != (start, end) and a <= end and start <= b]
             note = f" (overlaps {', '.join(shared)})" if shared else ""
             top = ", ".join(f"{k} {v}" for k, v in ops.most_common())
-            print(f"[sass] {want} loop {start:#x}-{end:#x}{note}: {len(body)} instructions, "
-                  f"{ops.get('FMUL', 0)} FMUL, {ops.get('FMNMX', 0)} FMNMX; {top}", flush=True)
+            print(f"[sass] {want} loop {start:#x}-{end:#x}{note}: {len(body)} instructions "
+                  f"(shortest path {shortest_path(code, start, end)}), {ops.get('FMUL', 0)} "
+                  f"FMUL, {ops.get('FMNMX', 0)} FMNMX; {top}", flush=True)
     return status
 
 
