@@ -13,11 +13,18 @@ Phases, one line each (any failure exits non-zero):
      of a frame (5 bounces) and of one resampling PRE (2 spp), and POST's
      live-ray list kernel on the state of each POST call (the same rays,
      each once; per call POST's time, its live rays and the list's time);
-     the traversal kernels on the primary and shadow wavefronts of a
-     scheme="kernel" frame and on a seeded random bounce wavefront; the
-     shade kernel on the state of each of the 5 bounces of that
-     scheme="kernel" frame with shade_kernel=True; the filter passes and
-     FXAA on the packed planes and the FXAA input of the frame; and the
+     the traversal kernels on every cast of a scheme="kernel" frame (5
+     closest, 5 any hit, each timed against its bound, which counts each
+     (ray, triangle) pair up to the record test's reject, with W's full
+     count beside it, and summed per frame), on a seeded random bounce
+     wavefront, and at the top of the scheme's range: the dragon
+     stand-in's 1080p camera rays against its first 4095 triangles (held
+     against the plain version on every 16th ray); the shade kernel on the
+     state of each of the 5 bounces of that scheme="kernel" frame with
+     shade_kernel=True; the three disc passes on every call (3 + 3 + 1) of
+     one theater (fused_split), one dragon stand-in (sparse) and one wave
+     (fused) frame, with per-frame sums of time and bound, and FXAA on
+     the FXAA input of the theater frame; and the
      four worklist kernels of scheme="sparse" (tile flags, nearest2 key,
      closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
      frame with shade_kernel=True: the flags and the key on every call of
@@ -86,7 +93,13 @@ over the frame's 5 calls; fused_frame: the 1-spp launch, with the 2-spp
 launch's ms_2spp, plain_ms_2spp and bound_ms_2spp; the four worklist kernels' ms and
 bound_ms are those of their first compared call, frame_ms and
 frame_bound_ms the sums over the frame's calls; the flags add
-frame_all_pairs_bound_ms, the bound of testing every live pair), the
+frame_all_pairs_bound_ms, the bound of testing every live pair; the
+traversal kernels' ms and bound_ms are the primary / shadow-0 cast's,
+frame_ms, frame_plain_ms and frame_bound_ms the sums over the theater
+frame's 5 casts and frame_w_bound_ms that of W's full count, and closest
+hit adds t4095_ms, t4095_bound_ms and t4095_w_bound_ms at 4095 triangles;
+the disc passes' ms and bound_ms are the theater frame's first call's,
+frame_ms and frame_bound_ms the sums over its calls of that pass), the
 card's name and power limit, and a last line {"ok": true, "device": {...}}.
 """
 
@@ -111,12 +124,13 @@ FP32_OPS_PER_S = 67e12
 # integer and address arithmetic count none, and so does work that a
 # data-dependent branch may skip (a gated tap, a first-surface update), so
 # each count is the least its inputs need.
-# One Moeller-Trumbore test of W's rows (trace.cuh fl_mt_*: the traversal
-# kernels and PRE) needs only their non-zero terms (ops/intersect_kernel.py
-# tri_rows: det 3, udet 9, vdet 9, sdet 3 and a constant): 24 multiplies and
-# 21 adds, the divide, the three scales, u + v and 8 compares; an any hit
-# keeps no running minimum (7 compares). The record test (POST, FRAME and
-# the worklist casts) is counted per pair up to its reject (OPS_REC_*).
+# One Moeller-Trumbore test of W's rows (trace.cuh fl_mt_closest: PRE; the
+# traversal kernels' bound in W's count) needs only their non-zero terms
+# (ops/intersect_kernel.py tri_rows: det 3, udet 9, vdet 9, sdet 3 and a
+# constant): 24 multiplies and 21 adds, the divide, the three scales, u + v
+# and 8 compares; an any hit keeps no running minimum (7 compares). The
+# record test (the traversal kernels, POST, FRAME and the worklist casts) is
+# counted per pair up to its reject (OPS_REC_*).
 OPS_CLOSEST_TEST = 58
 OPS_ANY_TEST = 57
 OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
@@ -347,14 +361,16 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops import fused_kernel as SK
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
-        from flexlight_tpu_torch.ops.intersect_kernel import _safe_dirs
+        from flexlight_tpu_torch.ops.geometry import world_geometry
+        from flexlight_tpu_torch.ops.intersect_kernel import _safe_dirs, build_w4
         from flexlight_tpu_torch.ops.buffers import build_scene_buffers
         from flexlight_tpu_torch.ops.intersect_sparse import REC
         from flexlight_tpu_torch.ops.intersect_sparse_kernel import (CAST_LANES, EXIT_ABS,
                                                                      EXIT_REL, TRI_TILE,
                                                                      cluster_minima_plain,
                                                                      record_products)
-        from flexlight_tpu_torch.ops.pathtrace import render_mrt, sample_cos
+        from flexlight_tpu_torch.ops.pathtrace import (camera_rays, inverse_view, render_mrt,
+                                                       sample_cos)
         from flexlight_tpu_torch.post.filter_kernel import byte_i
         from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
     except ImportError as exc:
@@ -416,6 +432,8 @@ def drive(args, dev, smi: str) -> int:
 
     sparse_names = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")
     in_place = ("sp_pre", "sp_post", "shade", "interp_shade")
+    traversal = ("closest_hit", "any_hit")
+    disc_names = ("first_blur", "second_blur", "final_blur")
 
     # ---- 3. kernels vs plain --------------------------------------------
     t0 = time.perf_counter()
@@ -439,9 +457,23 @@ def drive(args, dev, smi: str) -> int:
             return fn(*a)
         return rec
 
+    # every call of the disc passes of one theater (fused_split), dragon
+    # stand-in (sparse) and wave (fused) frame: {frame: [(name, args)]}
+    disc_calls = {"theater": [], "dragon": [], "wave": []}
+
+    def disc_call(frame, name, fn):
+        def rec(*a):
+            disc_calls[frame].append((name, clone(a)))
+            return fn(*a)
+        return rec
+
+    def recording_disc(kset, frame):
+        return kset._replace(**{n: disc_call(frame, n, getattr(kset, n)) for n in disc_names})
+
     # one fused_split frame and one scheme="kernel" frame (shade_kernel on)
-    # with the plain versions, recording the kernels' inputs
-    rec_set = KernelSet(*(every_call(n, f) if n in in_place else first_call(n, f)
+    # with the plain versions, recording the kernels' inputs (the traversal
+    # kernels' on every cast)
+    rec_set = KernelSet(*(every_call(n, f) if n in in_place + traversal else first_call(n, f)
                           for n, f in zip(KernelSet._fields, PLAIN)))
     # the worklist kernels' inputs: every call of one dragon stand-in frame
     # through the kernels (flags: primary, then shadow b and bounce b + 1 in
@@ -461,7 +493,7 @@ def drive(args, dev, smi: str) -> int:
 
     de, animate = dragon_engine(w, h)
     tracer = PathTracer(w, h, de.scene, de.camera, config, dev, shade_kernel=True,
-                        kernels=KERNELS._replace(
+                        kernels=recording_disc(KERNELS, "dragon")._replace(
         **{name: first_calls(name, getattr(KERNELS, name)) for name in sparse_names},
         interp_shade=every_call("interp_shade", KERNELS.interp_shade)))
     if tracer.resolved_scheme() != "sparse":
@@ -473,12 +505,20 @@ def drive(args, dev, smi: str) -> int:
     print("[kernel] the dragon frame (shade_kernel on) launched " + ", ".join(
         f"{name} {getattr(KERNELS, name).launches}x" for name in sparse_names + ("interp_shade",)),
         flush=True)
+    # the traversal kernels at the top of their range (the kernel scheme
+    # serves up to 4095 triangles): the stand-in's first 4095 triangles and
+    # its camera rays
+    big_w4, big_ids = build_w4(world_geometry(tracer._buffers),
+                               tracer._buffers.id_buffer[:4095])
+    big_cam = torch.as_tensor(de.camera.position, dtype=torch.float32, device=dev)
+    big_dirs = camera_rays(w, h, big_cam, inverse_view(de.camera.view_matrix(w, h)).to(dev))[1]
     del tracer, de
     if any(len(sparse_calls[name]) < keep[name] for name in sparse_names):
         fail(f"the dragon frame made too few worklist casts: "
              f"{ {name: len(c) for name, c in sparse_calls.items()} }")
     e = engine(w, h)
-    tracer = PathTracer(w, h, e.scene, e.camera, config, dev, kernels=rec_set)
+    tracer = PathTracer(w, h, e.scene, e.camera, config, dev,
+                        kernels=recording_disc(rec_set, "theater"))
     if tracer.resolved_scheme() != "fused_split":
         fail(f"theater resolves to scheme {tracer.resolved_scheme()!r}, not fused_split")
     tracer.render_frame()
@@ -495,13 +535,13 @@ def drive(args, dev, smi: str) -> int:
                kernels=PLAIN._replace(sp_pre=sp_pre_resample)).render_frame()
     del tracer
     missing = [n for n in KernelSet._fields
-               if n not in captured and n not in sparse_names + ("fused_frame",)]
+               if n not in captured and n not in sparse_names + disc_names + ("fused_frame",)]
     if missing or len(resample) != 1:
         fail(f"the frames did not reach {missing or 'a resampling PRE'}")
-    calls = {n: len(captured[n]) for n in in_place}
-    if calls != {"sp_pre": 1, "sp_post": config.max_reflections,
-                 "shade": config.max_reflections, "interp_shade": config.max_reflections}:
-        fail(f"the frames made {calls} calls of the in-place kernels")
+    calls = {n: len(captured[n]) for n in in_place + traversal}
+    if calls != {"sp_pre": 1, "sp_post": bounces, "shade": bounces, "interp_shade": bounces,
+                 "closest_hit": bounces, "any_hit": bounces}:
+        fail(f"the frames made {calls} calls of the in-place and traversal kernels")
 
     results = {}
 
@@ -763,6 +803,11 @@ def drive(args, dev, smi: str) -> int:
         del captured[name]
     torch.cuda.empty_cache()
 
+    # the disc passes' inputs of one wave frame (scheme="fused")
+    we, wave_step = wave_engine(w, h)
+    wave_step(0)
+    PathTracer(w, h, we.scene, we.camera, config, dev, scheme="fused",
+               kernels=recording_disc(KERNELS, "wave")).render_frame()
     # the whole-frame kernel (scheme="fused") on wave's camera rays: 1 spp
     # (the frame the port renders) and 2 spp
     we, _ = wave_engine(w, h)
@@ -838,46 +883,141 @@ def drive(args, dev, smi: str) -> int:
     del wb, we
     torch.cuda.empty_cache()
 
-    # the traversal (scheme="kernel")
+    # the traversal (scheme="kernel"): every cast of the theater frame, each
+    # bounded per pair up to the record test's reject (W's count, which
+    # tests every pair in full, in brackets), a seeded random bounce
+    # wavefront, and the stand-in's 4095 triangles
+    def cast_bound(w4_, closest, o3, d3, ml, edge, hit):
+        """(bound, W's bound) of one cast: every ray's max_len in, a live
+        ray's other 6 floats, each ray's outputs (4 words, or 1 byte) out,
+        and the record table; per live ray its record ray and every pair up
+        to its reject (an occluded ray: the pair that occludes it), counted
+        on the card. A dead ray (max_len <= 0) needs only its miss."""
+        n_, tp_ = ml.shape[0], w4_.shape[1]
+        live = int((ml > 0).sum())
+        nbytes = f32 * (n_ + 6 * live) + (f32 * 4 * n_ if closest else n_) + f32 * tp_ * REC
+        ops = table_cast_ops(F.record_from_w4(w4_), closest, o3, d3, ml, edge, hit)
+        if closest:
+            w_ops = live * (OPS_MAKE_RAY + tp_ * OPS_CLOSEST_TEST)
+        else:
+            hits = int((hit & (ml > 0)).sum())
+            w_ops = live * OPS_MAKE_RAY + (hits + (live - hits) * tp_) * OPS_ANY_TEST
+        return bound(nbytes, ops), bound(nbytes, w_ops)
+
     gen = torch.Generator().manual_seed(args.seed)
-    w4, ids, o3, d3, ml, edge = captured["closest_hit"]
-    w4s, so3, sd3, sml = captured["any_hit"]
-    n = ml.shape[0]
-
-    def closest_bound(max_len):
-        live = int((max_len > 0).sum())
-        return bound(f32 * 11 * n, n * OPS_MAKE_RAY + live * tp * OPS_CLOSEST_TEST)
-
-    def any_bound(o, d, max_len):
-        # an any hit needs at least one test per hitting ray and a full pass
-        # per live ray that hits nothing
-        hits = int(PLAIN.any_hit(w4s, o, d, max_len).sum())
-        live = int((max_len > 0).sum())
-        return bound(f32 * 7 * n + n,
-                     n * OPS_MAKE_RAY + (hits + (live - hits) * tp) * OPS_ANY_TEST)
-
+    n = captured["closest_hit"][0][4].shape[0]
     rand_o = tuple((torch.rand(n, generator=gen) * 80.0 - 40.0).to(dev) for _ in range(3))
     rd = torch.randn(3, n, generator=gen)
     rd = rd / rd.norm(dim=0)
     rand_d = tuple(c.contiguous().to(dev) for c in rd)
     rand_ml = torch.where(torch.rand(n, generator=gen) < 0.1, 0.0, POW32).to(dev)
     rand_len = (torch.rand(n, generator=gen) * 60.0).to(dev)
-    check("closest_hit", f"primary, {n} rays", (w4, ids, o3, d3, ml, edge), closest_bound(ml))
+    cast_labels = {"closest_hit": ["primary"] + [f"bounce {b}" for b in range(1, bounces)],
+                   "any_hit": [f"shadow {b}" for b in range(bounces)]}
+    for name in traversal:
+        closest = name == "closest_hit"
+        sums = [0.0, 0.0, 0.0, 0.0]
+        for k, (cast, a) in enumerate(zip(cast_labels[name], captured[name])):
+            w4_, o3, d3, ml = (a[0], a[2], a[3], a[4]) if closest else a
+            edge = a[5] if closest else BIAS
+            out = PLAIN.any_hit(*a) if not closest else PLAIN.closest_hit(*a)
+            bnd, w_bnd = cast_bound(w4_, closest, o3, d3, ml, edge,
+                                    out[3] >= 0 if closest else out)
+            del out
+            k_ms, p_ms = check(name, f"theater {cast} cast, {int((ml > 0).sum())} of "
+                               f"{ml.shape[0]} rays live, {w4_.shape[1]} triangles", a, bnd,
+                               main=k == 0)
+            print(f"[cast] {name} ({cast}): kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}, {k_ms / bnd[0]:.1f}x) [W's count {w_bnd[0]:.4f} ms, "
+                  f"{k_ms / w_bnd[0]:.1f}x]", flush=True)
+            sums = [sums[0] + k_ms, sums[1] + p_ms, sums[2] + bnd[0], sums[3] + w_bnd[0]]
+        print(f"[cast] {name}: per theater frame ({len(captured[name])} casts) kernel "
+              f"{sums[0]:.3f} ms, bound {sums[2]:.4f} ms ({sums[0] / sums[2]:.1f}x) [W's count "
+              f"{sums[3]:.4f} ms]", flush=True)
+        results[name].update(frame_ms=sums[0], frame_plain_ms=sums[1], frame_bound_ms=sums[2],
+                             frame_w_bound_ms=sums[3])
+    w4, ids = captured["closest_hit"][0][:2]
     check("closest_hit", f"random bounce, {n} rays", (w4, ids, rand_o, rand_d, rand_ml, BIAS),
-          closest_bound(rand_ml), main=False)
-    check("any_hit", f"shadow, {n} rays", (w4s, so3, sd3, sml), any_bound(so3, sd3, sml))
-    check("any_hit", f"random bounce, {n} rays", (w4s, rand_o, rand_d, rand_len),
-          any_bound(rand_o, rand_d, rand_len), main=False)
+          cast_bound(w4, True, rand_o, rand_d, rand_ml, BIAS,
+                     PLAIN.closest_hit(w4, ids, rand_o, rand_d, rand_ml, BIAS)[3] >= 0)[0],
+          main=False)
+    check("any_hit", f"random bounce, {n} rays", (w4, rand_o, rand_d, rand_len),
+          cast_bound(w4, False, rand_o, rand_d, rand_len, BIAS,
+                     PLAIN.any_hit(w4, rand_o, rand_d, rand_len))[0], main=False)
+    del captured["closest_hit"], captured["any_hit"]
+    # the stand-in's first 4095 triangles against its camera rays: the
+    # kernel on every ray, held against the plain version on every 16th
+    nb = big_dirs[0].shape[0]
+    big_o3 = tuple(big_cam[k].expand(nb).contiguous() for k in range(3))
+    big_d3 = tuple(c.contiguous() for c in big_dirs)
+    big_ml = torch.full((nb,), POW32, dtype=torch.float32, device=dev)
+    big = (big_w4, big_ids, big_o3, big_d3, big_ml, -BIAS)
+    got = KERNELS.closest_hit(*big)
+    sub = torch.arange(0, nb, 16, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = PLAIN.closest_hit(big_w4, big_ids, tuple(c[sub] for c in big_o3),
+                            tuple(c[sub] for c in big_d3), big_ml[sub], -BIAS)
+    end.record()
+    end.synchronize()
+    count, err = differences(tuple(x[sub] for x in got), ref, False)
+    bnd, w_bnd = cast_bound(big_w4, True, big_o3, big_d3, big_ml, -BIAS, got[3] >= 0)
+    k_ms = cuda_ms(lambda: KERNELS.closest_hit(*big))
+    report("closest_hit", f"dragon stand-in primary, {nb} rays x {big_w4.shape[1]} triangles, "
+           f"held on every 16th ray ({sub.numel()}), {int((got[3] >= 0).sum())} hits",
+           count, err, k_ms, start.elapsed_time(end), bnd, main=False)
+    print(f"[cast] closest_hit at {big_w4.shape[1]} triangles: kernel {k_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, {k_ms / bnd[0]:.1f}x) [W's count {w_bnd[0]:.4f} ms, "
+          f"{k_ms / w_bnd[0]:.1f}x]", flush=True)
+    results["closest_hit"].update(t4095_ms=k_ms, t4095_bound_ms=bnd[0],
+                                  t4095_w_bound_ms=w_bnd[0])
+    del got, ref, big, big_w4, big_o3, big_d3, big_ml, big_dirs
 
-    # the filter passes and FXAA (of the fused_split frame)
-    p5 = captured["first_blur"][0]
-    px = p5.shape[1] * p5.shape[2]
-    check("first_blur", "packed planes of the frame", captured["first_blur"],
-          bound(px * (20 + 8), px * (37 * OPS_DISC_TAP["first_blur"])), packed=True)
-    check("second_blur", "packed planes of the frame", captured["second_blur"],
-          bound(px * (20 + 12), px * (36 * OPS_DISC_TAP["second_blur"])), packed=True)
-    check("final_blur", "packed planes of the frame", captured["final_blur"],
-          bound(px * (20 + 12), px * (37 * OPS_DISC_TAP["final_blur"])))
+    # the disc passes on every call of the theater, dragon and wave frames
+    # (3 first, 3 second, 1 final each), and FXAA (of the theater frame)
+    def disc_bound(name, planes):
+        """Each of the five planes read once and the outputs written once;
+        the taps every pixel needs (a first-pass pixel whose key is 0 needs
+        none)."""
+        px = planes[0].numel()
+        if name == "first_blur":
+            taps = 37 * int((byte_i(planes[4], 3) != 0).sum())
+            return bound(px * (20 + 8), taps * OPS_DISC_TAP[name])
+        taps = px * (36 if name == "second_blur" else 37)
+        return bound(px * (20 + 12), taps * OPS_DISC_TAP[name])
+
+    for frame, calls in disc_calls.items():
+        if [c[0] for c in calls] != ["first_blur"] * 3 + ["second_blur"] * 3 + ["final_blur"]:
+            fail(f"the {frame} frame's disc passes: {[c[0] for c in calls]}")
+        sums = {name: [0.0, 0.0] for name in disc_names}
+        for k, (name, a) in enumerate(calls):
+            label = f"{frame} frame, pass {k + 1} of 7"
+            bnd = disc_bound(name, a)
+            if frame == "theater" and name not in [c[0] for c in calls[:k]]:
+                k_ms, _ = check(name, label, a, bnd, packed=name != "final_blur")
+            else:
+                # one timed call of the plain version (a second or more at 1080p)
+                ko = getattr(KERNELS, name)(*a)
+                start.record()
+                po = getattr(PLAIN, name)(*a)
+                end.record()
+                end.synchronize()
+                count, err = differences(ko, po, name != "final_blur")
+                del ko, po
+                k_ms = cuda_ms(lambda: getattr(KERNELS, name)(*a))  # noqa: B023
+                report(name, label, count, err, k_ms, start.elapsed_time(end), bnd, main=False)
+            sums[name] = [sums[name][0] + k_ms, sums[name][1] + bnd[0]]
+        total = [sum(x[0] for x in sums.values()), sum(x[1] for x in sums.values())]
+        print(f"[disc] {frame} frame: the 7 passes {total[0]:.3f} ms, bound {total[1]:.4f} ms "
+              f"({total[0] / total[1]:.1f}x); " + ", ".join(
+                  f"{name} {v[0]:.3f} ms (bound {v[1]:.4f})" for name, v in sums.items()),
+              flush=True)
+        if frame == "theater":
+            for name, v in sums.items():
+                results[name].update(frame_ms=v[0], frame_bound_ms=v[1])
+    del disc_calls
+    px = captured["fxaa"][0].shape[0] * captured["fxaa"][0].shape[1]
     check("fxaa", "FXAA input of the frame", captured["fxaa"],
           bound(px * (16 + 16), px * OPS_FXAA_PIXEL))
     del captured

@@ -49,12 +49,12 @@ SIGNATURES = {
     "fl_closest_hit": [_P, _I, _P] + [_P] * 7 + [_F, _I] + [_P] * 4 + [_P],
     # w4, tp, ox, oy, oz, dx, dy, dz, max_len, n, hit, stream
     "fl_any_hit": [_P, _I] + [_P] * 7 + [_I, _P, _P],
-    # packed5, h, w, color_out, ip3_out, stream
-    "fl_disc_first": [_P, _I, _I, _P, _P, _P],
-    # packed5, h, w, color_out, ip_out, ocolor_out, stream
-    "fl_disc_second": [_P, _I, _I, _P, _P, _P, _P],
-    # packed5, h, w, hdr, out3, stream
-    "fl_disc_final": [_P, _I, _I, _I, _P, _P],
+    # id, oid, color, ip, ocolor, h, w, color_out, ip3_out, stream
+    "fl_disc_first": [_P] * 5 + [_I, _I, _P, _P, _P],
+    # id, oid, color, ip, ocolor, h, w, color_out, ip_out, ocolor_out, stream
+    "fl_disc_second": [_P] * 5 + [_I, _I, _P, _P, _P, _P],
+    # id, oid, color, ip, ocolor, h, w, hdr, out3, stream
+    "fl_disc_final": [_P] * 5 + [_I, _I, _I, _P, _P],
     # img, h, w, out, stream
     "fl_fxaa": [_P, _I, _I, _P, _P],
     # state, dirs, w4, tp, ids, mat, cam, resample, min_importance, n, stream

@@ -42,6 +42,11 @@ static inline int atomicAdd(int* p, int v) {
     *p += v;
     return old;
 }
+static inline unsigned atomicMax(unsigned* p, unsigned v) {
+    unsigned old = *p;
+    if (v > old) *p = v;
+    return old;
+}
 template <typename T> static inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <typename T> static inline T __shfl_sync(unsigned, T v, int) { return v; }
 static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }

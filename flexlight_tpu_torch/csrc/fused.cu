@@ -220,7 +220,7 @@ fl_sp_post_kernel(float* __restrict__ st, const float* __restrict__ tex,
     int live = *count;
     int first = blockIdx.x * blockDim.x;
     if (first >= live) return;
-    fl_rec_stage(w4, tp, rec);
+    fl_rec_stage(w4, tp, 0, tp, rec);
     for (int e = threadIdx.x; e < n_lights * 6; e += blockDim.x) sl[e] = lights[e];
     __syncthreads();
     for (int j = first + threadIdx.x; j < live; j += gridDim.x * blockDim.x) {
@@ -370,7 +370,7 @@ fl_fused_frame_kernel(
     float min_importance, int n, int* __restrict__ ray_counter, int* __restrict__ lane_stats) {
     FL_DYN_SHARED(float4, rec);
     __shared__ float sl[FL_MAX_LIGHTS * 6];
-    fl_rec_stage(w4, tp, rec);
+    fl_rec_stage(w4, tp, 0, tp, rec);
     for (int e = threadIdx.x; e < n_lights * 6; e += blockDim.x) sl[e] = lights[e];
     __syncthreads();
     const unsigned full = 0xffffffffu;

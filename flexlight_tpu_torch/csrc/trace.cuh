@@ -10,9 +10,10 @@
 //   both noise hashes   ops/rng.py (noise4, noise4_counter)
 //   the BRDF            ops/brdf.py (forward_trace_soa)
 //   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]:
-//                       intersect.cu, PRE) and its 16-float triangle record
+//                       PRE) and its 16-float triangle record
 //                       (ops/intersect_sparse_kernel.py record_products:
-//                       sparse.cu's worklist casts, POST and FRAME)
+//                       intersect.cu's casts, sparse.cu's worklist casts,
+//                       POST and FRAME)
 //   bounce stages       ops/pathtrace.py bounce_pre, bounce_shade (with
 //                       reservoir_select), bounce_apply, over the carry
 //                       rows of a state block (ops/fused.py's layout)
@@ -306,24 +307,6 @@ __device__ __forceinline__ bool fl_mt_closest(float (*sw)[FL_TRI_CHUNK][16], int
     return valid && (s > FL_BIAS) && (s <= r.max_len);
 }
 
-// The front-face-culled any-hit test of staged triangle t (glsl:143-158,
-// ops/intersect_kernel.py any_hit_plain).
-__device__ __forceinline__ bool fl_mt_any(float (*sw)[FL_TRI_CHUNK][16], int t,
-                                          const fl_ray& r) {
-    float det = fl_dot16(sw[0][t], r.f);
-    float udet = fl_dot16(sw[1][t], r.f);
-    float vdet = fl_dot16(sw[2][t], r.f);
-    float sdet = fl_dot16(sw[3][t], r.f);
-    float inv = 1.0f / det;
-    float u = udet * inv;
-    float v = vdet * inv;
-    float s = sdet * inv;
-    bool valid = det >= FL_BIAS;
-    valid = valid && (u >= FL_BIAS) && (u <= 1.0f);
-    valid = valid && (v >= FL_BIAS) && (u + v <= 1.0f);
-    return valid && (s > FL_BIAS) && (s <= r.max_len);
-}
-
 struct fl_hit {
     float s, u, v;
     int col;  // triangle column, -1 on a miss
@@ -366,37 +349,16 @@ __device__ __forceinline__ fl_hit fl_block_closest(const float* __restrict__ w4,
     return h;
 }
 
-// Front-face-culled any hit within r.max_len (glsl:143-158), block-wide as
-// fl_block_closest; the block leaves the triangle loop together once no
-// ray of it is still searching.
-__device__ __forceinline__ bool fl_block_any(const float* __restrict__ w4, int tp,
-                                             float (*sw)[FL_TRI_CHUNK][16], bool want,
-                                             const fl_ray& r) {
-    bool hit = false;
-    for (int c0 = 0; c0 < tp; c0 += FL_TRI_CHUNK) {
-        if (!__syncthreads_or(want && !hit)) break;
-        int cnt = tp - c0 < FL_TRI_CHUNK ? tp - c0 : FL_TRI_CHUNK;
-        fl_stage(w4, tp, c0, cnt, sw);
-        __syncthreads();
-        if (want && !hit) {
-            for (int t = 0; t < cnt; ++t) {
-                if (fl_mt_any(sw, t, r)) { hit = true; break; }
-            }
-        }
-        __syncthreads();
-    }
-    return hit;
-}
-
 // ---- the 16-float triangle record (ops/intersect_sparse.py tri_record) ----
 //
 // n, v0.n, e2 x v0, v0 x e1, e2, e1: the distinct magnitudes of the 25
 // non-zero terms of a triangle's 64-float W rows. A test sums only those
 // terms, in W's k order, the signs as exact negations (24 multiplies, 21
 // adds), so det, udet, vdet and sdet equal the 64-term sums of
-// fl_mt_closest / fl_mt_any wherever W's zero products meet finite ray
-// features (a zero may differ in sign). The worklist casts (sparse.cu) and
-// POST and FRAME (fused.cu) test it. Quads: a = (n, v0.n), b = (e2 x v0,
+// fl_mt_closest (and of W's any-hit window) wherever W's zero products
+// meet finite ray features (a zero may differ in sign). The traversal
+// kernels (intersect.cu), the worklist casts (sparse.cu) and POST and FRAME
+// (fused.cu) test it. Quads: a = (n, v0.n), b = (e2 x v0,
 // (v0 x e1).x), c = ((v0 x e1).yz, e2.xy), e = (e2.z, e1).
 
 // A ray of the record test: origin, direction (a zero direction becomes
@@ -484,8 +446,9 @@ __device__ __forceinline__ bool fl_rec_closest(const Q& q, int t, const fl_rray&
     return valid && (s > FL_BIAS) && (s <= r.max_len);
 }
 
-// The front-face-culled any-hit test of triangle t (the window of
-// fl_mt_any, whose u / v edge is BIAS), after the exact early rejects.
+// The front-face-culled any-hit test of triangle t (glsl:143-158,
+// ops/intersect_kernel.py any_hit_plain: det >= BIAS and the window with
+// its u / v edge at BIAS), after the exact early rejects.
 template <typename Q>
 __device__ __forceinline__ bool fl_rec_any(const Q& q, int t, const fl_rray& r) {
     float4 a = q[0][t];
@@ -518,22 +481,23 @@ struct fl_rec_table {
     __device__ __forceinline__ quad operator[](int p) const { return {rec + p}; }
 };
 
-// Every thread of the block builds its share of the records of W[4, tp, 16]
-// into `rec` (4 * tp quads): each value is one of W's entries or its exact
-// negation (ops/intersect_kernel.py tri_rows: det = [0, 0, -n, 0],
-// udet = [0, 0, -(e2 x v0), skew(e2)], vdet = [0, 0, -(v0 x e1), -skew(e1)],
-// sdet = [-v0.n, n, 0, 0]), so the table equals tri_record's. The caller
-// publishes it with a barrier.
-__device__ __forceinline__ void fl_rec_stage(const float* __restrict__ w4, int tp,
-                                             float4* rec) {
-    for (int t = threadIdx.x; t < tp; t += blockDim.x) {
+// Every thread of the block builds its share of the records of triangles
+// [c0, c0 + cnt) of W[4, tp, 16] into `rec` (4 * cnt quads): each value is
+// one of W's entries or its exact negation (ops/intersect_kernel.py
+// tri_rows: det = [0, 0, -n, 0], udet = [0, 0, -(e2 x v0), skew(e2)],
+// vdet = [0, 0, -(v0 x e1), -skew(e1)], sdet = [-v0.n, n, 0, 0]), so the
+// table equals tri_record's. The caller publishes it with a barrier.
+__device__ __forceinline__ void fl_rec_stage(const float* __restrict__ w4, int tp, int c0,
+                                             int cnt, float4* rec) {
+    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
+        int t = c0 + k;
         const float* u = w4 + ((size_t)tp + t) * 16;
         const float* v = w4 + ((size_t)2 * tp + t) * 16;
         const float* s = w4 + ((size_t)3 * tp + t) * 16;
-        rec[4 * t] = make_float4(s[1], s[2], s[3], -s[0]);
-        rec[4 * t + 1] = make_float4(-u[4], -u[5], -u[6], -v[4]);
-        rec[4 * t + 2] = make_float4(-v[5], -v[6], u[14], u[9]);
-        rec[4 * t + 3] = make_float4(u[10], v[12], v[13], v[8]);
+        rec[4 * k] = make_float4(s[1], s[2], s[3], -s[0]);
+        rec[4 * k + 1] = make_float4(-u[4], -u[5], -u[6], -v[4]);
+        rec[4 * k + 2] = make_float4(-v[5], -v[6], u[14], u[9]);
+        rec[4 * k + 3] = make_float4(u[10], v[12], v[13], v[8]);
     }
 }
 
@@ -565,7 +529,7 @@ __device__ __forceinline__ fl_hit fl_table_closest(const float4* rec, int tp, co
 }
 
 // Front-face-culled any hit within r.max_len over the whole table, in this
-// thread alone, up to the first triangle that occludes (fl_block_any's
+// thread alone, up to the first triangle that occludes (any_hit_plain's
 // result). A ray with max_len <= 0 (or NaN) can have no hit (s > BIAS).
 __device__ __forceinline__ bool fl_table_any(const float4* rec, int tp, const fl_rray& r) {
     if (!(r.max_len > 0.0f)) return false;

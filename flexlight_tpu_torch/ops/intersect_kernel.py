@@ -4,11 +4,15 @@ kernel 1 of the port (csrc/intersect.cu).
 Moeller-Trumbore in the bilinear form of flexlight_tpu/ops/traverse_mxu.py:
 with the ray features f = [1, o, d, vec(d (x) o)], the four MT quantities
 (det, u*det, v*det, s*det) of every (ray, triangle) pair are dot products
-of f with constant per-triangle rows W[4, T, 16] (`tri_rows`). The CUDA
-kernel stages W in shared memory and runs the dot products and the accept
-window per ray; `closest_hit_plain` / `any_hit_plain` are the same
-function as the [N, 16] @ [16, 4T] product (in k order) plus epilogue,
-chunked over rays.
+of f with constant per-triangle rows W[4, T, 16] (`tri_rows`).
+`closest_hit_plain` / `any_hit_plain` are that function as the
+[N, 16] @ [16, 4T] product (in k order) plus the accept window, chunked
+over rays. The CUDA kernels build each triangle's 16-float record from W
+in shared memory (its 25 non-zero terms, ops/intersect_sparse.py
+`tri_record`), sum those terms in W's k order and reject a pair exactly
+before the division once det or a numerator's sign rules it out; the
+sums equal W's but for a zero's sign, which no accept decision reads, so
+the outputs are the plain versions'.
 
 Ties in s go to the lowest triangle column (the TPU kernel's argmin).
 Zero directions are replaced by +z, and a ray with max_len 0 (dead) hits

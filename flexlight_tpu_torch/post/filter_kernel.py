@@ -5,8 +5,8 @@ Every filter input is an rgba8-quantized image (k/255), so a pixel's four
 channels pack losslessly into one int32 (b0 | b1<<8 | b2<<16 | b3<<24) and
 the id-equality gates become integer compares
 (flexlight_tpu/post/filter_kernel.py). The chain runs on packed [H, W]
-int32 planes end to end; each pass stacks (ID, OID, COLOR, IP, OCOLOR)
-into [5, H, W] for the disc kernel. The first pass's static-stencil vote
+int32 planes end to end; each pass hands the disc kernel the five planes
+(ID, OID, COLOR, IP, OCOLOR) as they are, with no stack. The first pass's static-stencil vote
 repair and the fast mode's blur-key tiling are torch ops here, as they
 are XLA ops in flexlight_tpu.
 
@@ -105,65 +105,69 @@ def tileize_blur_key_packed(ocolor_p: torch.Tensor, ty: int = 32, tx: int = 128)
 
 
 # --------------------------------------------------------------------------
-# kernel 2: the disc passes on the packed stack [5, H, W]
+# kernel 2: the disc passes on the five packed planes
 # --------------------------------------------------------------------------
 
-def _unpack5(packed5: torch.Tensor):
-    """[5, H, W] -> (color, ip, ocolor, ids, oid) [H, W, 4] floats, the
-    argument order of post/filters.py."""
-    ids, oid, color, ip, ocolor = (unpack_rgba8(packed5[k]) for k in range(5))
-    return color, ip, ocolor, ids, oid
+def _unpack5(ids, oid, color, ip, ocolor):
+    """The five packed [H, W] planes -> (color, ip, ocolor, ids, oid)
+    [H, W, 4] floats, the argument order of post/filters.py."""
+    return tuple(unpack_rgba8(x) for x in (color, ip, ocolor, ids, oid))
 
 
-def first_blur_plain(packed5: torch.Tensor):
+def first_blur_plain(ids, oid, color, ip, ocolor):
     """(color_p, ip3_p): the first pass's disc blur, packed; byte 3 of
     ip3_p is zero (the vote repair fills it)."""
-    new_color, new_ip3 = filters.first_blur(*_unpack5(packed5))
+    new_color, new_ip3 = filters.first_blur(*_unpack5(ids, oid, color, ip, ocolor))
     return pack_rgba8(new_color), pack_rgba8(new_ip3)
 
 
-def second_blur_plain(packed5: torch.Tensor):
+def second_blur_plain(ids, oid, color, ip, ocolor):
     """(color_p, ip_p, ocolor_p) of the second pass."""
-    return tuple(pack_rgba8(x) for x in filters.second_filter(*_unpack5(packed5)))
+    return tuple(pack_rgba8(x)
+                 for x in filters.second_filter(*_unpack5(ids, oid, color, ip, ocolor)))
 
 
-def final_blur_plain(packed5: torch.Tensor, hdr: bool):
+def final_blur_plain(ids, oid, color, ip, ocolor, hdr: bool):
     """The display image [H, W, 3] f32 of the final pass."""
-    return filters.final_filter(*_unpack5(packed5), hdr)
+    return filters.final_filter(*_unpack5(ids, oid, color, ip, ocolor), hdr)
 
 
-def _check_packed5(packed5: torch.Tensor):
-    if packed5.ndim != 3 or packed5.shape[0] != 5:
-        raise ValueError(f"packed5: expected [5, H, W], got {tuple(packed5.shape)}")
-    h, w = packed5.shape[1], packed5.shape[2]
-    _native.require(packed5, "packed5", torch.int32, (5, h, w), packed5.device)
-    return h, w
+def _plane_ptrs(planes):
+    """Check the five planes (ID, OID, COLOR, IP, OCOLOR: int32 [H, W], one
+    shape and device, contiguous); (h, w, their pointers)."""
+    if len(planes) != 5:
+        raise ValueError(f"expected the 5 planes ID, OID, COLOR, IP, OCOLOR, got {len(planes)}")
+    if planes[0].ndim != 2:
+        raise ValueError(f"planes: expected [H, W], got {tuple(planes[0].shape)}")
+    h, w = planes[0].shape
+    for name, x in zip(("ids", "oid", "color", "ip", "ocolor"), planes):
+        _native.require(x, name, torch.int32, (h, w), planes[0].device)
+    return h, w, [_native.ptr(x) for x in planes]
 
 
-def _first_blur_launch(lib, stream, packed5):
-    h, w = _check_packed5(packed5)
-    color = torch.empty((h, w), dtype=torch.int32, device=packed5.device)
+def _first_blur_launch(lib, stream, *planes):
+    h, w, ptrs = _plane_ptrs(planes)
+    color = torch.empty((h, w), dtype=torch.int32, device=planes[0].device)
     ip3 = torch.empty_like(color)
-    _native.check(lib.fl_disc_first(_native.ptr(packed5), h, w, _native.ptr(color),
-                                    _native.ptr(ip3), stream), "first_blur")
+    _native.check(lib.fl_disc_first(*ptrs, h, w, _native.ptr(color), _native.ptr(ip3), stream),
+                  "first_blur")
     return color, ip3
 
 
-def _second_blur_launch(lib, stream, packed5):
-    h, w = _check_packed5(packed5)
-    outs = tuple(torch.empty((h, w), dtype=torch.int32, device=packed5.device)
+def _second_blur_launch(lib, stream, *planes):
+    h, w, ptrs = _plane_ptrs(planes)
+    outs = tuple(torch.empty((h, w), dtype=torch.int32, device=planes[0].device)
                  for _ in range(3))
-    _native.check(lib.fl_disc_second(_native.ptr(packed5), h, w,
-                                     *(_native.ptr(o) for o in outs), stream),
+    _native.check(lib.fl_disc_second(*ptrs, h, w, *(_native.ptr(o) for o in outs), stream),
                   "second_blur")
     return outs
 
 
-def _final_blur_launch(lib, stream, packed5, hdr: bool):
-    h, w = _check_packed5(packed5)
-    out = torch.empty((h, w, 3), dtype=torch.float32, device=packed5.device)
-    _native.check(lib.fl_disc_final(_native.ptr(packed5), h, w, int(bool(hdr)),
-                                    _native.ptr(out), stream), "final_blur")
+def _final_blur_launch(lib, stream, ids, oid, color, ip, ocolor, hdr: bool):
+    h, w, ptrs = _plane_ptrs((ids, oid, color, ip, ocolor))
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=ids.device)
+    _native.check(lib.fl_disc_final(*ptrs, h, w, int(bool(hdr)), _native.ptr(out), stream),
+                  "final_blur")
     return out
 
 
@@ -184,7 +188,7 @@ final_blur = _native.Kernel("final_blur", final_blur_plain, _final_blur_launch,
 def first_filter_packed(color_p, ip_p, ocolor_p, ids_p, oid_p, blur=first_blur):
     """First pass on packed [H, W] planes -> (color_p, ip_p, render_id_p)."""
     render_id_p, render_ip_w = vote_repair_packed(ids_p, oid_p, byte_f(ip_p, 3))
-    color, ip3 = blur(torch.stack([ids_p, oid_p, color_p, ip_p, ocolor_p]))
+    color, ip3 = blur(ids_p, oid_p, color_p, ip_p, ocolor_p)
     # color.w is quantized (>= 0), so sign(w) == (w > 0)
     sgn = (byte_i(color_p, 3) > 0).to(torch.float32)
     ip_w = torch.round(quantize_rgba8(sgn * render_ip_w) * 255.0).to(torch.int64)
@@ -193,10 +197,10 @@ def first_filter_packed(color_p, ip_p, ocolor_p, ids_p, oid_p, blur=first_blur):
 
 def second_filter_packed(color_p, ip_p, ocolor_p, ids_p, oid_p, blur=second_blur):
     """Second pass -> (color_p, ip_p, ocolor_p)."""
-    return blur(torch.stack([ids_p, oid_p, color_p, ip_p, ocolor_p]))
+    return blur(ids_p, oid_p, color_p, ip_p, ocolor_p)
 
 
 def final_filter_packed(color_p, ip_p, ocolor_p, ids_p, oid_p, hdr: bool,
                         blur=final_blur):
     """Final pass -> the display image [H, W, 3] f32."""
-    return blur(torch.stack([ids_p, oid_p, color_p, ip_p, ocolor_p]), hdr)
+    return blur(ids_p, oid_p, color_p, ip_p, ocolor_p, hdr)

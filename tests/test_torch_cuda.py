@@ -470,3 +470,74 @@ def test_frame_lane_counts_on_the_card(wave_frame, dev):
     lanes, busy = stats.tolist()
     assert ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all()
     assert busy == live[0] > 0 and lanes >= busy and lanes % 32 == 0
+
+
+@pytest.mark.parametrize("t_total", [1, 20, 256, 257, 773])
+@pytest.mark.parametrize("name", ["det_bias", "det_below_bias", "sdet_zero", "udet_zero",
+                                  "vdet_zero", "u_on_edge", "u_below_edge", "back_face"])
+def test_bounce_casts_are_exact_on_crafted_reject_edges_on_the_card(dev, name, t_total):
+    """The traversal kernels on test_torch_trace_record's bounce cases:
+    the crafted triangles last among fillers of W (T = 1 .. 3 chunks + 5)."""
+    from flexlight_tpu_torch.ops import intersect_kernel as IK
+    from flexlight_tpu_torch.ops.intersect import BIAS
+    from test_torch_fused_record import identical
+    from test_torch_trace_record import SIZES, bounce_edge_casts
+
+    assert t_total in SIZES
+    w4, ids, (so3, sd3, sml), (no3, nd3, nml) = bounce_edge_casts(name, t_total, dev)
+    hit = IK.any_hit(w4, so3, sd3, sml)
+    assert hit.is_cuda and torch.equal(hit, IK.any_hit_plain(w4, so3, sd3, sml))
+    got = IK.closest_hit(w4, ids, no3, nd3, nml, BIAS)
+    ref = IK.closest_hit_plain(w4, ids, no3, nd3, nml, BIAS)
+    assert got[0].is_cuda and all(identical(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("t_total", [1, 20, 256, 257, 773])
+@pytest.mark.parametrize("name", ["u_zero", "u_on_edge", "u_past_edge", "det_minus_bias",
+                                  "sdet_zero", "v_zero"])
+def test_primary_casts_are_exact_on_crafted_reject_edges_on_the_card(dev, name, t_total):
+    from flexlight_tpu_torch.ops import intersect_kernel as IK
+    from flexlight_tpu_torch.ops.intersect import BIAS
+    from test_torch_fused_record import identical
+    from test_torch_trace_record import primary_edge_casts
+
+    w4, ids, (o3, d3, ml) = primary_edge_casts(name, t_total, dev)
+    got = IK.closest_hit(w4, ids, o3, d3, ml, -BIAS)
+    ref = IK.closest_hit_plain(w4, ids, o3, d3, ml, -BIAS)
+    assert got[0].is_cuda and all(identical(a, b) for a, b in zip(got, ref))
+
+
+def test_the_cast_walk_across_chunks_on_the_card(dev):
+    """walk_casts: within each block of 256 rays the any hits leave at
+    triangles of every chunk, dead and short rays beside them (packed into
+    the block's first threads)."""
+    from flexlight_tpu_torch.ops import intersect_kernel as IK
+    from flexlight_tpu_torch.ops.intersect import BIAS
+    from test_torch_fused_record import identical
+    from test_torch_trace_record import walk_casts
+
+    w4, ids, o3, d3, ml, short = walk_casts(dev)
+    for edge in (BIAS, -BIAS):
+        got = IK.closest_hit(w4, ids, o3, d3, ml, edge)
+        ref = IK.closest_hit_plain(w4, ids, o3, d3, ml, edge)
+        assert got[0].is_cuda and all(identical(a, b) for a, b in zip(got, ref))
+    hit = IK.any_hit(w4, o3, d3, short)
+    assert torch.equal(hit, IK.any_hit_plain(w4, o3, d3, short)) and hit.any()
+
+
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+@pytest.mark.parametrize("size", [(96, 160), (70, 150)])
+def test_disc_passes_on_mixed_key_tiles_on_the_card(dev, size, mode):
+    """test_torch_disc_tile's planes: key tiles at the 42-px reach, of no
+    blur and of per-pixel keys, glass gates, sizes no multiple of a tile."""
+    from flexlight_tpu_torch.post import filter_kernel as FK
+    from test_torch_disc_tile import disc_planes
+
+    planes = disc_planes(1, *size, mode, dev)
+    for name in ("first_blur", "second_blur"):
+        got = getattr(FK, name)(*planes)
+        ref = getattr(FK, f"{name}_plain")(*planes)
+        assert got[0].is_cuda and all(torch.equal(a, b) for a, b in zip(got, ref))
+    for hdr in (True, False):
+        got = FK.final_blur(*planes, hdr)
+        torch.testing.assert_close(got, FK.final_blur_plain(*planes, hdr), atol=1e-6, rtol=0)

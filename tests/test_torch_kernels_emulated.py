@@ -114,6 +114,8 @@ def test_any_hit_kernel_is_bit_exact(lib, frame_inputs):
 
 
 def _random_packed5(seed, h=24, w=40):
+    """The five packed planes (ID, OID, COLOR, IP, OCOLOR) of random
+    quantized images."""
     rng = np.random.default_rng(seed)
     q = lambda x: np.round(np.clip(x, 0, 1) * 255).astype(np.float32) * np.float32(1 / 255)
     ids = q(rng.uniform(0, 1, (5, 4)))[rng.integers(0, 5, (h, w))]
@@ -122,23 +124,23 @@ def _random_packed5(seed, h=24, w=40):
     ip = q(np.where(rng.uniform(size=(h, w, 4)) < 0.3, rng.uniform(0, 0.3, (h, w, 4)), 0))
     ocw = q(np.where(rng.uniform(size=(h, w)) < 0.5, rng.uniform(0, 1, (h, w)), 0))
     ocolor = np.concatenate([q(rng.uniform(0, 1, (h, w, 3))), ocw[..., None]], -1)
-    return torch.stack([FK.pack_rgba8(torch.from_numpy(x)) for x in (ids, oid, color, ip, ocolor)])
+    return tuple(FK.pack_rgba8(torch.from_numpy(x)) for x in (ids, oid, color, ip, ocolor))
 
 
 @pytest.mark.parametrize("which", ["first", "second"])
 def test_disc_passes_are_bit_exact(lib, frame_inputs, which):
     launch = getattr(FK, f"_{which}_blur_launch")
     plain = getattr(FK, f"{which}_blur_plain")
-    for p5 in (frame_inputs[f"{which}_blur"][0], _random_packed5(3)):
-        _same(launch(lib, 0, p5), plain(p5))
+    for planes in (frame_inputs[f"{which}_blur"], _random_packed5(3)):
+        _same(launch(lib, 0, *planes), plain(*planes))
 
 
 @pytest.mark.parametrize("hdr", [True, False])
 def test_final_pass_matches(lib, frame_inputs, hdr):
-    for p5 in (frame_inputs["final_blur"][0], _random_packed5(4)):
-        got = FK._final_blur_launch(lib, 0, p5, hdr)
-        ref = FK.final_blur_plain(p5, hdr)
-        assert got.shape == ref.shape == (p5.shape[1], p5.shape[2], 3)
+    for planes in (frame_inputs["final_blur"][:5], _random_packed5(4)):
+        got = FK._final_blur_launch(lib, 0, *planes, hdr)
+        ref = FK.final_blur_plain(*planes, hdr)
+        assert got.shape == ref.shape == (*planes[0].shape, 3)
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
@@ -151,11 +153,13 @@ def test_fxaa_kernel_is_bit_exact(lib, frame_inputs):
 
 
 def test_launch_checks_reject_what_the_kernel_does_not_take(lib):
-    p5 = _random_packed5(5)
+    planes = _random_packed5(5)
     with pytest.raises(TypeError):
-        FK._first_blur_launch(lib, 0, p5.to(torch.int64))
+        FK._first_blur_launch(lib, 0, *planes[:4], planes[4].to(torch.int64))
     with pytest.raises(ValueError):
-        FK._second_blur_launch(lib, 0, p5[:4])
+        FK._second_blur_launch(lib, 0, *planes[:4])
+    with pytest.raises(ValueError):
+        FK._final_blur_launch(lib, 0, *planes[:4], planes[4][:, :-1], True)
     with pytest.raises(ValueError):
         XK._fxaa_launch(lib, 0, torch.zeros(8, 8, 4).transpose(0, 1))
 

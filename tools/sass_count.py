@@ -17,9 +17,14 @@ branch forward into the loop's own tail (an early reject that goes on to
 the next item; the whole body where there is none). Where two such ranges
 overlap (a second back edge into the same code), both are printed and
 marked: the later range's count then takes in part of the earlier body
-and is no loop body of its own. Which loop is which test is read off the
-source (PERF.md names the ranges). Needs the CUDA toolkit; the card itself
-is not used.
+and is no loop body of its own. A loop that holds others (a pixel loop
+whose taps are unrolled around a rolled loop) is printed with the
+instructions of its range outside the loops it holds, and the same
+shortest path. Every loop also gets its longest straight run: the most
+instructions in a row with no branch and no branch target among them
+(the unrolled taps of a disc pass that run without branches; divided by
+the taps, the instructions a tap takes). Which loop is which test is read off the source (PERF.md
+names the ranges). Needs the CUDA toolkit; the card itself is not used.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("fl_sparse_flags_kernel", "fl_sparse_key_kernel", "fl_sp_post_kernel",
-           "fl_fused_frame_kernel")
+KERNELS = ("fl_closest_hit_kernel", "fl_any_hit_kernel", "fl_disc_first_kernel",
+           "fl_disc_second_kernel", "fl_disc_final_kernel", "fl_sparse_flags_kernel",
+           "fl_sparse_key_kernel", "fl_sp_post_kernel", "fl_fused_frame_kernel")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
@@ -68,16 +74,46 @@ def opcode(text: str) -> str:
     return words[0].split(".")[0] if words else ""
 
 
-def innermost_loops(code):
-    """[(start, end)] address ranges of the loops that hold no other."""
+def all_loops(code):
+    """[(start, end)] address ranges of the loops (each back edge)."""
     loops = []
     for addr, text in code:
         if opcode(text) == "BRA":
             m = re.search(r"0x([0-9a-f]+)", text.split("BRA", 1)[1])
             if m and int(m.group(1), 16) < addr:
                 loops.append((int(m.group(1), 16), addr))
-    return [a for a in loops
-            if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
+    return loops
+
+
+def held(a, loops):
+    """The loops of `loops` whose ranges lie inside a's (a excluded)."""
+    return [b for b in loops if b != a and a[0] <= b[0] and b[1] <= a[1]]
+
+
+def longest_run(code, start: int, end: int) -> int:
+    """The most instructions in a row within [start, end] with no branch
+    among them and no branch target after the first."""
+    targets = set()
+    for _, text in code:
+        if opcode(text) == "BRA":
+            m = re.search(r"0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if m:
+                targets.add(int(m.group(1), 16))
+    best = run = 0
+    for addr, text in code:
+        if not start <= addr <= end:
+            continue
+        run = 1 if addr in targets else run + 1
+        if opcode(text) in ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET"):
+            run = 0
+        best = max(best, run)
+    return best
+
+
+def innermost_loops(code):
+    """[(start, end)] address ranges of the loops that hold no other."""
+    loops = all_loops(code)
+    return [a for a in loops if not held(a, loops)]
 
 
 def shortest_path(code, start: int, end: int) -> int:
@@ -127,6 +163,18 @@ def main() -> int:
         digest = hashlib.sha256("\n".join(t for _, t in code).encode()).hexdigest()[:16]
         print(f"[sass] {want}: {len(code)} instructions, code digest {digest}", flush=True)
         loops = innermost_loops(code)
+        every = all_loops(code)
+        for outer in every:
+            inner = held(outer, every)
+            if not inner:
+                continue
+            own = [t for a, t in code if outer[0] <= a <= outer[1]
+                   and not any(s <= a <= e for s, e in inner)]
+            print(f"[sass] {want} loop {outer[0]:#x}-{outer[1]:#x} holds {len(inner)} loops: "
+                  f"{len(own)} instructions outside them (shortest path "
+                  f"{shortest_path(code, *outer)} with them), "
+                  f"{sum(1 for t in own if opcode(t) == 'LDS')} LDS, longest straight run "
+                  f"{longest_run(code, *outer)}", flush=True)
         for start, end in loops:
             body = [t for a, t in code if start <= a <= end]
             ops = collections.Counter(opcode(t) for t in body)
@@ -135,8 +183,9 @@ def main() -> int:
             note = f" (overlaps {', '.join(shared)})" if shared else ""
             top = ", ".join(f"{k} {v}" for k, v in ops.most_common())
             print(f"[sass] {want} loop {start:#x}-{end:#x}{note}: {len(body)} instructions "
-                  f"(shortest path {shortest_path(code, start, end)}), {ops.get('FMUL', 0)} "
-                  f"FMUL, {ops.get('FMNMX', 0)} FMNMX; {top}", flush=True)
+                  f"(shortest path {shortest_path(code, start, end)}, longest straight run "
+                  f"{longest_run(code, start, end)}), {ops.get('FMUL', 0)} FMUL, "
+                  f"{ops.get('FMNMX', 0)} FMNMX; {top}", flush=True)
     return status
 
 
