@@ -10,7 +10,10 @@ Phases, one line each (any failure exits non-zero):
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, on the inputs one real theater 1080p frame hands it: the PRE and
      POST kernels of scheme="fused_split" on the state block of every call
-     of a frame (5 bounces) and of one resampling PRE (2 spp), and POST's
+     of a frame (5 bounces) and of one resampling PRE (2 spp), PRE at the
+     top of its range (a 1024-triangle scene, wave with 9 x 9 pillars and
+     50 seeded triangles, at this size, held against the plain version on
+     every 16th ray), and POST's
      live-ray list kernel on the state of each POST call (the same rays,
      each once; per call POST's time, its live rays and the list's time);
      the traversal kernels on every cast of a scheme="kernel" frame (5
@@ -24,7 +27,9 @@ Phases, one line each (any failure exits non-zero):
      shade_kernel=True; the three disc passes on every call (3 + 3 + 1) of
      one theater (fused_split), one dragon stand-in (sparse) and one wave
      (fused) frame, with per-frame sums of time and bound, and FXAA on
-     the FXAA input of the theater frame; and the
+     the FXAA input of the theater frame and on an edge-heavy image of
+     the same size (seeded random 2 x 2 cells), each with its share of
+     edge pixels; and the
      four worklist kernels of scheme="sparse" (tile flags, nearest2 key,
      closest hit, any hit) on the wavefronts of a dragon stand-in 1080p
      frame with shade_kernel=True: the flags and the key on every call of
@@ -45,10 +50,10 @@ Phases, one line each (any failure exits non-zero):
      version, so their outputs must be identical; prints the number of
      differing values, the max abs difference, the median CUDA-event time
      of both sides (the slow plain worklist casts: one timed call) and the
-     least time the card could take (bound). The bounds of POST and
+     least time the card could take (bound). The bounds of PRE, POST and
      fused_frame count each cast's (ray, triangle) pairs up to the record
      test's reject that takes them (`table_cast_ops`), on the card in
-     chunks.
+     chunks; PRE's has W's count beside it.
   4. main path: theater at 1080p (stand-in wood texture from --seed), full
      pipeline (temporal 4, 3+3+final filter, FXAA, 1 spp, 5 bounces)
      through FlexLight(...).renderer = "pathtracer" and render_frame(),
@@ -88,8 +93,13 @@ Phases, one line each (any failure exits non-zero):
      above; one frame's MRT on scheme="fused" must be identical to the
      same frame's on scheme="fused_split" (both through the kernels), and
      the CUDA-event time of both MRT passes is printed.
-Then one JSON line per the kernels (POST and its list kernel: the sums
-over the frame's 5 calls; fused_frame: the 1-spp launch, with the 2-spp
+Then one JSON line per the kernels (PRE: the theater call, with W's
+bound w_bound_ms, the resampling call's resample_ms, resample_plain_ms
+and resample_bound_ms, and the 1024-triangle call's cap_ms,
+cap_plain_ms_16th (the plain version on every 16th ray), cap_bound_ms and
+cap_w_bound_ms; FXAA: the frame's input, with the edge-heavy image's
+edge_ms, edge_plain_ms and edge_bound_ms; POST and its list kernel: the
+sums over the frame's 5 calls; fused_frame: the 1-spp launch, with the 2-spp
 launch's ms_2spp, plain_ms_2spp and bound_ms_2spp; the four worklist kernels' ms and
 bound_ms are those of their first compared call, frame_ms and
 frame_bound_ms the sums over the frame's calls; the flags add
@@ -124,16 +134,17 @@ FP32_OPS_PER_S = 67e12
 # integer and address arithmetic count none, and so does work that a
 # data-dependent branch may skip (a gated tap, a first-surface update), so
 # each count is the least its inputs need.
-# One Moeller-Trumbore test of W's rows (trace.cuh fl_mt_closest: PRE; the
-# traversal kernels' bound in W's count) needs only their non-zero terms
+# One Moeller-Trumbore test of W's rows (ops/intersect_kernel.py
+# closest_hit_plain: W's count, in brackets beside the bounds of PRE and
+# the traversal kernels) needs only their non-zero terms
 # (ops/intersect_kernel.py tri_rows: det 3, udet 9, vdet 9, sdet 3 and a
 # constant): 24 multiplies and 21 adds, the divide, the three scales, u + v
 # and 8 compares; an any hit keeps no running minimum (7 compares). The
-# record test (the traversal kernels, POST, FRAME and the worklist casts) is
-# counted per pair up to its reject (OPS_REC_*).
+# record test (the traversal kernels, PRE, POST, FRAME and the worklist
+# casts) is counted per pair up to its reject (OPS_REC_*).
 OPS_CLOSEST_TEST = 58
 OPS_ANY_TEST = 57
-OPS_MAKE_RAY = 15        # trace.cuh fl_make_ray: |d|^2, its test, d (x) o
+OPS_MAKE_RAY = 15        # W's ray features: |d|^2, its test, d (x) o
 OPS_BOUNCE_PRE = 205     # trace.cuh fl_bounce_pre: 55, and 50 per vertex
 # trace.cuh fl_bounce_shade outside the light loop and the noise: the frame
 # (ray_dir 14, sign 8, flip 3, noise phase 1, random sphere 25, brdf 9,
@@ -707,12 +718,71 @@ def drive(args, dev, smi: str) -> int:
     state0, dirs, w4, ids = captured["sp_pre"][0][:4]
     n, tp = dirs.shape[1], w4.shape[1]
     f32 = 4
-    check_state("sp_pre", f"primary hit + bounce_pre(0), {n} rays",
-                captured["sp_pre"][0],
-                bound((3 + F.SP_C) * f32 * n,
-                      n * (OPS_MAKE_RAY + tp * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE)))
-    check_state("sp_pre", f"resampling (2nd of 2 spp), {n} rays", resample[0],
-                bound((3 + 4 + 8 + F.SP_C) * f32 * n, n * OPS_BOUNCE_PRE), main=False)
+
+    def pre_bound(pre_args):
+        """(bound, W's bound) of a casting PRE call: per ray 3 rows read and
+        55 written, its record ray, every (ray, triangle) pair up to the
+        record test's reject (table_cast_ops; W's count: every pair in full)
+        and bounce_pre(0)."""
+        dirs_, w4_, cam_ = pre_args[1], pre_args[2], pre_args[5]
+        n_, tp_ = dirs_.shape[1], w4_.shape[1]
+        o3 = tuple(cam_[k].expand(n_) for k in range(3))
+        ml = torch.full((n_,), POW32, dtype=torch.float32, device=dev)
+        ops = table_cast_ops(F.record_from_w4(w4_), True, o3, tuple(dirs_), ml, -BIAS, None)
+        nbytes = (3 + F.SP_C) * f32 * n_
+        return (bound(nbytes, ops + n_ * OPS_BOUNCE_PRE),
+                bound(nbytes, n_ * (OPS_MAKE_RAY + tp_ * OPS_CLOSEST_TEST + OPS_BOUNCE_PRE)))
+
+    def pre_line(label, k_ms, bnd, w_bnd):
+        print(f"[pre] {label}: kernel {k_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+              f"{k_ms / bnd[0]:.1f}x) [W's count {w_bnd[0]:.4f} ms ({w_bnd[1]})]", flush=True)
+
+    bnd, w_bnd = pre_bound(captured["sp_pre"][0])
+    k_ms, _ = check_state("sp_pre", f"primary hit + bounce_pre(0), {n} rays x {tp} triangles",
+                          captured["sp_pre"][0], bnd)
+    pre_line(f"theater, {tp} triangles", k_ms, bnd, w_bnd)
+    results["sp_pre"].update(w_bound_ms=w_bnd[0])
+    bnd = bound((3 + 4 + 8 + F.SP_C) * f32 * n, n * OPS_BOUNCE_PRE)
+    k_ms, p_ms = check_state("sp_pre", f"resampling (2nd of 2 spp), {n} rays", resample[0], bnd,
+                             main=False)
+    results["sp_pre"].update(resample_ms=k_ms, resample_plain_ms=p_ms, resample_bound_ms=bnd[0])
+    # PRE at the top of its range: a 1024-triangle scene (wave with 9 x 9
+    # pillars and 50 seeded triangles: a 64 KB record table) at this size,
+    # held against the plain version on every 16th ray
+    reset_global_registry()
+    ce, ce_step = wave(side_length=9, device=dev)
+    crng = np.random.default_rng(args.seed)
+    for _ in range(50):
+        c = crng.uniform(-4, 12, 3).astype(np.float32)
+        c[1] = abs(c[1])
+        ce.scene.queue.push(ce.scene.Triangle(c, c + [0.5, 0.0, 0.0], c + [0.0, 0.5, 0.5]))
+    ce_step(0)
+    cb = build_scene_buffers(ce.scene, dev)
+    ccam, cdirs, _, cw4, cids, cmat = F.frame_inputs(cb, w, h, ce.camera.position,
+                                                     ce.camera.view_matrix(w, h))
+    if cw4.shape[1] != F.MAX_TRIS:
+        fail(f"the cap scene has {cw4.shape[1]} triangles, not {F.MAX_TRIS}")
+    nc = cdirs.shape[1]
+    cap = (torch.zeros((F.SP_C, nc), dtype=torch.float32, device=dev), cdirs, cw4, cids, cmat,
+           ccam, False, config)
+    got = KERNELS.sp_pre(*clone(cap))
+    sub = torch.arange(0, nc, 16, device=dev)
+    t_start_ev = torch.cuda.Event(enable_timing=True)
+    t_end_ev = torch.cuda.Event(enable_timing=True)
+    t_start_ev.record()
+    ref = PLAIN.sp_pre(cap[0][:, sub].contiguous(), cdirs[:, sub].contiguous(), *cap[2:])
+    t_end_ev.record()
+    t_end_ev.synchronize()
+    count, err = differences(got[:, sub], ref, False)
+    bnd, w_bnd = pre_bound(cap)
+    k_ms = cuda_ms(lambda: KERNELS.sp_pre(*cap))
+    report("sp_pre", f"{F.MAX_TRIS}-triangle scene, {nc} rays, held on every 16th ray "
+           f"({sub.numel()}), {int((got[F.PPART + 3] >= 0).sum())} hits", count, err, k_ms,
+           t_start_ev.elapsed_time(t_end_ev), bnd, main=False)
+    pre_line(f"at {F.MAX_TRIS} triangles", k_ms, bnd, w_bnd)
+    results["sp_pre"].update(cap_ms=k_ms, cap_plain_ms_16th=t_start_ev.elapsed_time(t_end_ev),
+                             cap_bound_ms=bnd[0], cap_w_bound_ms=w_bnd[0])
+    del cap, got, ref, ce, cb, cdirs, cw4, cmat
     post_sum, list_sum = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
     lights = captured["sp_post"][0][6]
     n_lights, lights_on = lights.shape[0], int((lights[:, 1, 0] > 0).sum())
@@ -1017,10 +1087,31 @@ def drive(args, dev, smi: str) -> int:
             for name, v in sums.items():
                 results[name].update(frame_ms=v[0], frame_bound_ms=v[1])
     del disc_calls
-    px = captured["fxaa"][0].shape[0] * captured["fxaa"][0].shape[1]
-    check("fxaa", "FXAA input of the frame", captured["fxaa"],
-          bound(px * (16 + 16), px * OPS_FXAA_PIXEL))
-    del captured
+    def edge_share(img):
+        """The share of pixels that fail FXAA's 3x3 test (post/fxaa.py's
+        low_contrast) and run the edge search."""
+        luma = (img[..., 1] * (0.587 / 0.299) + img[..., 0]) * img[..., 3]
+        pad = torch.nn.functional.pad(luma, (1, 1, 1, 1))
+        cross = torch.stack([pad[:-2, 1:-1], pad[1:-1, :-2], pad[2:, 1:-1], pad[1:-1, 2:]])
+        hi = torch.maximum(luma, cross.amax(dim=0))
+        lo = torch.minimum(luma, cross.amin(dim=0))
+        return float(((hi - lo) >= torch.clamp_min(hi * 0.5, 1.0 / 32.0)).float().mean())
+
+    fimg = captured["fxaa"][0]
+    px = fimg.shape[0] * fimg.shape[1]
+    bnd = bound(px * (16 + 16), px * OPS_FXAA_PIXEL)
+    check("fxaa", f"FXAA input of the frame, {edge_share(fimg):.2%} edge pixels", captured["fxaa"],
+          bnd)
+    # an edge-heavy image of the same size: seeded random colours in 2 x 2
+    # cells, alpha 1, so most pixels run the search
+    cells = torch.rand(((fimg.shape[0] + 1) // 2, (fimg.shape[1] + 1) // 2, 4), generator=gen)
+    edgy = cells.repeat_interleave(2, 0).repeat_interleave(2, 1)[:fimg.shape[0], :fimg.shape[1]]
+    edgy[..., 3] = 1.0
+    edgy = edgy.contiguous().to(dev)
+    k_ms, p_ms = check("fxaa", f"edge-heavy image, 2 x 2 random cells, {edge_share(edgy):.2%} "
+                       f"edge pixels", (edgy,), bnd, main=False)
+    results["fxaa"].update(edge_ms=k_ms, edge_plain_ms=p_ms, edge_bound_ms=bnd[0])
+    del captured, edgy
 
     # the worklist kernels (scheme="sparse") on the dragon frame's wavefronts
     def check_sparse(name, label, args_, bound_of, main=True):

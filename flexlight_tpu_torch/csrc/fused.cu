@@ -25,12 +25,11 @@
 // column, so POST updates the state in place, and PRE in place too (it
 // reads what it needs of its column before it writes it).
 //
-// PRE (untouched since its port) stages W's rows through shared memory in
-// chunks, block-wide (fl_block_closest, as intersect.cu). POST and FRAME
-// are designed for the H100 from what held them back: per (ray, triangle)
-// test four 16-term dot products of W (~150 instructions before any
-// reject), lanes of dead rays riding along in every warp through every
-// bounce, and two block-wide barriers per chunk of every cast.
+// PRE, POST and FRAME are designed for the H100 from what held them back:
+// per (ray, triangle) test four 16-term dot products of W (~150
+// instructions before any reject), lanes of dead rays riding along in
+// every warp through every bounce, and two block-wide barriers per chunk
+// of every cast.
 // - The record table: each block builds the scene's 16-float triangle
 //   records (trace.cuh fl_rec_stage, exact entries of W) in dynamic shared
 //   memory once, 64 bytes a triangle (64 KB at the 1024-triangle cap of
@@ -40,6 +39,14 @@
 //   test rejects most pairs after 6-14 operations, exactly (trace.cuh
 //   fl_rec_closest / fl_rec_any), and a survivor takes the plain version's
 //   division and window. Ties in s go to the lowest column.
+// - PRE on a persistent grid: PRE is mostly a stream of state writes (55
+//   rows a ray, each warp writing 32 neighbouring floats of a row), and its
+//   primary cast has no u / v cull, so it casts on the record table as
+//   FRAME does, built once per resident block (as many blocks as the card
+//   holds at once), not once per block of rays. The blocks stride over the
+//   rays in index order, so each warp's row writes stay coalesced. A
+//   resampling call (the samples after the first) reads its primary hit
+//   from the state: it stages no table and casts nothing, one ray a thread.
 // - POST over a live list: fl_sp_live_list_kernel writes the indices of the
 //   rays with m = 1 (a ballot per warp and one atomicAdd per block, so they
 //   stay in ascending runs) and their count, on the device; POST's persistent
@@ -58,10 +65,11 @@
 //   scaled by f32(1 / spp), so the output is the plain frame's whatever
 //   the schedule.
 //
-// What bounds them on the H100: POST the state's bytes (~47 rows read and
-// ~51 written of a live ray: ~0.24 ms when every ray of a 1080p frame is
-// live) beside 9 lights x (shading + noise) and two casts per live ray;
-// FRAME the operations of its live ray-bounces (chip_smoke.py counts them,
+// What bounds them on the H100: PRE the state's bytes (3 rows read and 55
+// written a ray, 70 rows in all when it resamples: ~0.14 / 0.17 ms at
+// 1080p); POST the state's bytes (~47 rows read and ~51 written of a live
+// ray: ~0.24 ms when every ray of a 1080p frame is live) beside 9 lights x
+// (shading + noise) and two casts per live ray; FRAME the operations of its live ray-bounces (chip_smoke.py counts them,
 // each test up to its reject). The material row (49 floats) of a ray's own
 // triangle and the atlas tables are read from global memory, where L1 and
 // L2 serve them.
@@ -75,6 +83,12 @@
 // fewest registers they reach without spills
 #define FL_FUSED_MIN_BLOCKS 3
 #define FL_FUSED_MAX_TRIS 1024  // ops/fused.py MAX_TRIS: a 64 KB record table
+// PRE's blocks, and the blocks of FL_PRE_BLOCK threads that
+// __launch_bounds__ asks ptxas to fit on one SM: 72 registers, so more
+// warps for PRE's write stream, and at the cap three 64 KB tables, 768
+// threads, an SM (the fastest of the shapes tried, PERF.md)
+#define FL_PRE_BLOCK 256
+#define FL_PRE_MIN_BLOCKS 3
 
 // the rows of the split pipeline's state past the carry and the surface
 // (ops/fused.py); the carry rows and FL_SURF are trace.cuh's
@@ -123,54 +137,102 @@ __device__ __forceinline__ void fl_bounce_commit(fl_carry& c, const fl_hit& h,
     c.last_hit = c.ray_origin;
 }
 
-__global__ void fl_sp_pre_kernel(float* __restrict__ st, const float* __restrict__ dirs,
-                                 const float* __restrict__ w4, int tp,
-                                 const int* __restrict__ ids, const float* __restrict__ mat,
-                                 const float* __restrict__ cam, int resample,
-                                 float min_importance, int n) {
-    __shared__ float sw[4][FL_TRI_CHUNK][16];
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    bool in = i < n;
-    fl_v3 camera = fl_make3(cam[0], cam[1], cam[2]);
-    fl_v3 dir = in ? fl_load3(dirs, n, i) : fl_make3(0.0f, 0.0f, 1.0f);
-    fl_carry c;
-    float ps, pu, pv;
-    int ptri;
-    if (resample) {
-        if (!in) return;
-        ps = fl_row(st, n, FL_PPART, i);
-        pu = fl_row(st, n, FL_PPART + 1, i);
-        pv = fl_row(st, n, FL_PPART + 2, i);
-        ptri = (int)fl_row(st, n, FL_PPART + 3, i);
-        for (int k = 0; k < 4; ++k) c.render_id[k] = fl_row(st, n, FL_RENDER_ID + k, i);
-        c.glass = fl_row(st, n, FL_GLASS, i);
-        c.rme_x = fl_row(st, n, FL_RME_X, i);
-        c.tpo_x = fl_row(st, n, FL_TPO_X, i);
-        c.first_ray_length = fl_row(st, n, FL_FIRST_RAY_LENGTH, i);
-    } else {
-        fl_ray r;
-        fl_make_ray(camera, dir, FL_POW32, r);
-        // primaries replace the reference's watertight raster pass: relaxed edge
-        fl_hit h = fl_block_closest(w4, tp, sw, in, r, -FL_BIAS);
-        if (!in) return;
-        ps = h.s;
-        pu = h.u;
-        pv = h.v;
-        ptri = h.col >= 0 ? ids[h.col] : -1;
-        for (int k = 0; k < 4; ++k) c.render_id[k] = 0.0f;
-        c.glass = 0.0f;
-        c.rme_x = 0.0f;
-        c.tpo_x = 0.0f;
-        c.first_ray_length = 1.0f;
+// The persistent grid of a kernel whose blocks stride over their work: as
+// many blocks of `block` threads, with `smem` bytes of dynamic shared
+// memory each, as the card holds at once, and no more than `most` (one
+// block of one thread emulated). Above 48 KB the kernel is first allowed
+// its dynamic shared memory, on the current device. The answer is kept per
+// kernel and device (for the last table size asked there); the grid size
+// only spreads the work, so any size is correct.
+#define FL_GRID_DEVICES 64
+template <typename K>
+static int fl_persistent_grid(K kernel, int block, size_t smem, int most) {
+#ifdef FL_EMULATE
+    (void)kernel;
+    (void)block;
+    (void)smem;
+    (void)most;
+    return 1;
+#else
+    static std::mutex lock;
+    static size_t asked[FL_GRID_DEVICES];  // smem + 1 of the last answer, 0 for none
+    static int resident[FL_GRID_DEVICES];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    std::lock_guard<std::mutex> hold(lock);
+    bool kept = dev >= 0 && dev < FL_GRID_DEVICES;
+    if (!kept || asked[dev] != smem + 1) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (smem > 48 * 1024)
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+        int r = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+        if (!kept) return r < most ? r : most;
+        resident[dev] = r;
+        asked[dev] = smem + 1;
     }
-    fl_carry_init(c, ps, pu, pv, ptri, camera, dir);
-    fl_surface s = fl_bounce_pre(c, mat, min_importance);
-    fl_write_carry(st, n, i, c);
-    fl_write_surface(st, n, i, s);
-    fl_put(st, n, FL_PPART, i, ps);
-    fl_put(st, n, FL_PPART + 1, i, pu);
-    fl_put(st, n, FL_PPART + 2, i, pv);
-    fl_put(st, n, FL_PPART + 3, i, (float)ptri);
+    return resident[dev] < most ? resident[dev] : most;
+#endif
+}
+
+// bytes of the record table of tp triangles
+static size_t fl_table_bytes(int tp) { return (size_t)tp * 4 * sizeof(float4); }
+
+// PRE over the rays i = thread, thread + grid threads, ...: the primary
+// cast (relaxed -BIAS edge, so no u / v cull) on the record table, or with
+// `resample` the primary hit and the carried channels read from the state,
+// then bounce_carry_init and bounce_pre(0).
+__global__ void __launch_bounds__(FL_PRE_BLOCK, FL_PRE_MIN_BLOCKS)
+fl_sp_pre_kernel(float* __restrict__ st, const float* __restrict__ dirs,
+                 const float* __restrict__ w4, int tp, const int* __restrict__ ids,
+                 const float* __restrict__ mat, const float* __restrict__ cam, int resample,
+                 float min_importance, int n) {
+    FL_DYN_SHARED(float4, rec);
+    if (!resample) {
+        fl_rec_stage(w4, tp, 0, tp, rec);
+        __syncthreads();
+    }
+    fl_v3 camera = fl_make3(cam[0], cam[1], cam[2]);
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+        fl_v3 dir = fl_load3(dirs, n, i);
+        fl_carry c;
+        float ps, pu, pv;
+        int ptri;
+        if (resample) {
+            ps = fl_row(st, n, FL_PPART, i);
+            pu = fl_row(st, n, FL_PPART + 1, i);
+            pv = fl_row(st, n, FL_PPART + 2, i);
+            ptri = (int)fl_row(st, n, FL_PPART + 3, i);
+            for (int k = 0; k < 4; ++k) c.render_id[k] = fl_row(st, n, FL_RENDER_ID + k, i);
+            c.glass = fl_row(st, n, FL_GLASS, i);
+            c.rme_x = fl_row(st, n, FL_RME_X, i);
+            c.tpo_x = fl_row(st, n, FL_TPO_X, i);
+            c.first_ray_length = fl_row(st, n, FL_FIRST_RAY_LENGTH, i);
+        } else {
+            // primaries replace the reference's watertight raster pass: relaxed edge
+            fl_rray r;
+            fl_make_rray(camera, dir, FL_POW32, r);
+            fl_hit h = fl_table_closest(rec, tp, r, -FL_BIAS);
+            ps = h.s;
+            pu = h.u;
+            pv = h.v;
+            ptri = h.col >= 0 ? ids[h.col] : -1;
+            for (int k = 0; k < 4; ++k) c.render_id[k] = 0.0f;
+            c.glass = 0.0f;
+            c.rme_x = 0.0f;
+            c.tpo_x = 0.0f;
+            c.first_ray_length = 1.0f;
+        }
+        fl_carry_init(c, ps, pu, pv, ptri, camera, dir);
+        fl_surface s = fl_bounce_pre(c, mat, min_importance);
+        fl_write_carry(st, n, i, c);
+        fl_write_surface(st, n, i, s);
+        fl_put(st, n, FL_PPART, i, ps);
+        fl_put(st, n, FL_PPART + 1, i, pu);
+        fl_put(st, n, FL_PPART + 2, i, pv);
+        fl_put(st, n, FL_PPART + 3, i, (float)ptri);
+    }
 }
 
 // The live-ray list of a POST call: the indices of the rays with m = 1
@@ -261,51 +323,16 @@ FL_EXPORT int fl_sp_pre(float* state, const float* dirs, const float* w4, int tp
                         const int* ids, const float* mat, const float* cam, int resample,
                         float min_importance, int n, void* stream) {
     if (n <= 0) return 0;
-    FL_LAUNCH(fl_sp_pre_kernel, n, FL_FUSED_BLOCK, stream, state, dirs, w4, tp, ids, mat,
-              cam, resample, min_importance, n);
+    if (tp < 0 || tp > FL_FUSED_MAX_TRIS) return -1;
+    int blocks = (n + FL_PRE_BLOCK - 1) / FL_PRE_BLOCK;
+    if (resample)  // no table: one ray a thread
+        FL_LAUNCH_BLOCKS(fl_sp_pre_kernel, blocks, FL_PRE_BLOCK, stream, state, dirs, w4, tp,
+                         ids, mat, cam, resample, min_importance, n);
+    size_t smem = fl_table_bytes(tp);
+    int grid = fl_persistent_grid(fl_sp_pre_kernel, FL_PRE_BLOCK, smem, blocks);
+    FL_LAUNCH_BLOCKS_SMEM(fl_sp_pre_kernel, grid, FL_PRE_BLOCK, smem, stream, state, dirs, w4,
+                          tp, ids, mat, cam, resample, min_importance, n);
 }
-
-// The persistent grid of a kernel whose blocks stride over their work: as
-// many blocks of `block` threads, with `smem` bytes of dynamic shared
-// memory each, as the card holds at once, and no more than `most` (one
-// block of one thread emulated). Above 48 KB the kernel is first allowed
-// its dynamic shared memory, on the current device. The answer is kept per
-// kernel and device (for the last table size asked there); the grid size
-// only spreads the work, so any size is correct.
-#define FL_GRID_DEVICES 64
-template <typename K>
-static int fl_persistent_grid(K kernel, int block, size_t smem, int most) {
-#ifdef FL_EMULATE
-    (void)kernel;
-    (void)block;
-    (void)smem;
-    (void)most;
-    return 1;
-#else
-    static std::mutex lock;
-    static size_t asked[FL_GRID_DEVICES];  // smem + 1 of the last answer, 0 for none
-    static int resident[FL_GRID_DEVICES];
-    int dev = 0;
-    cudaGetDevice(&dev);
-    std::lock_guard<std::mutex> hold(lock);
-    bool kept = dev >= 0 && dev < FL_GRID_DEVICES;
-    if (!kept || asked[dev] != smem + 1) {
-        int sms = 0, per_sm = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (smem > 48 * 1024)
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
-        int r = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-        if (!kept) return r < most ? r : most;
-        resident[dev] = r;
-        asked[dev] = smem + 1;
-    }
-    return resident[dev] < most ? resident[dev] : most;
-#endif
-}
-
-// bytes of the record table of tp triangles
-static size_t fl_table_bytes(int tp) { return (size_t)tp * 4 * sizeof(float4); }
 
 FL_EXPORT int fl_sp_live_list(const float* state, int n, int* list, int* count, void* stream) {
     int err = FL_ZERO_ASYNC(count, sizeof(int), stream);

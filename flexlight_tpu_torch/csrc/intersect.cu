@@ -27,8 +27,7 @@
 // and a block with no live ray stages nothing. An any-hit ray leaves at
 // its first occluder, and the any-hit block stops staging once none of
 // its rays is still searching. The TPU's flag prepass, octant sort and
-// ray/triangle tiles are MXU scheduling and are left out. PRE (fused.cu)
-// keeps its own traversal of W's rows (trace.cuh fl_block_closest).
+// ray/triangle tiles are MXU scheduling and are left out.
 #include "trace.cuh"
 
 // rays a block casts, and triangles whose records it holds at once (16 KB)

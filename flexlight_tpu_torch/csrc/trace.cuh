@@ -9,11 +9,11 @@
 //   vec3 helpers        ops/vec3.py
 //   both noise hashes   ops/rng.py (noise4, noise4_counter)
 //   the BRDF            ops/brdf.py (forward_trace_soa)
-//   Moeller-Trumbore    ops/intersect_kernel.py (bilinear form, W[4, T, 16]:
-//                       PRE) and its 16-float triangle record
-//                       (ops/intersect_sparse_kernel.py record_products:
-//                       intersect.cu's casts, sparse.cu's worklist casts,
-//                       POST and FRAME)
+//   Moeller-Trumbore    the 16-float triangle record of W[4, T, 16]'s
+//                       bilinear form (ops/intersect_kernel.py), as
+//                       ops/intersect_sparse_kernel.py record_products
+//                       sums it: intersect.cu's casts, sparse.cu's
+//                       worklist casts, PRE, POST and FRAME
 //   bounce stages       ops/pathtrace.py bounce_pre, bounce_shade (with
 //                       reservoir_select), bounce_apply, over the carry
 //                       rows of a state block (ops/fused.py's layout)
@@ -30,7 +30,6 @@
 #define FL_PI ((float)3.141592653589793)
 #define FL_INV_PI ((float)0.3183098861837907)
 #define FL_PHI ((float)1.61803398874989484820459)
-#define FL_TRI_CHUNK 64
 
 // ---- comparisons as torch takes them (NaN propagates) ---------------------
 
@@ -247,122 +246,20 @@ __device__ __forceinline__ fl_v3 fl_forward_trace(fl_v3 albedo, float rough, flo
     return fl_make3(out[0], out[1], out[2]);
 }
 
-// ---- Moeller-Trumbore, bilinear form (ops/intersect_kernel.py) ----------
-
-struct fl_ray {
-    float f[16];
-    float max_len;
-};
-
-// f = [1, o, d, vec(d (x) o)]; a zero direction becomes +z (_safe_dirs).
-__device__ __forceinline__ void fl_make_ray(fl_v3 o3, fl_v3 d3, float max_len, fl_ray& r) {
-    float o[3] = {o3.x, o3.y, o3.z};
-    float d[3] = {d3.x, d3.y, d3.z};
-    float norm2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    if (norm2 <= 0.0f) { d[0] = 0.0f; d[1] = 0.0f; d[2] = 1.0f; }
-    r.f[0] = 1.0f;
-    for (int k = 0; k < 3; ++k) r.f[1 + k] = o[k];
-    for (int k = 0; k < 3; ++k) r.f[4 + k] = d[k];
-    for (int c = 0; c < 3; ++c)
-        for (int k = 0; k < 3; ++k) r.f[7 + 3 * c + k] = d[c] * o[k];
-    r.max_len = max_len;
-}
-
-// Stage rows [c0, c0 + cnt) of W[4, tp, 16] into shared memory.
-__device__ __forceinline__ void fl_stage(const float* __restrict__ w4, int tp, int c0,
-                                         int cnt, float (*sw)[FL_TRI_CHUNK][16]) {
-    for (int e = threadIdx.x; e < 4 * cnt * 16; e += blockDim.x) {
-        int p = e / (cnt * 16);
-        int rem = e - p * cnt * 16;
-        int t = rem / 16;
-        int k = rem - t * 16;
-        sw[p][t][k] = w4[((size_t)p * tp + c0 + t) * 16 + k];
-    }
-}
-
-__device__ __forceinline__ float fl_dot16(const float* w, const float* f) {
-    float acc = w[0] * f[0];
-    for (int k = 1; k < 16; ++k) acc = acc + w[k] * f[k];
-    return acc;
-}
-
-// The two-sided closest-hit test of staged triangle t against ray r
-// (ops/intersect_kernel.py closest_hit_plain): s, u, v and whether the
-// accept window takes it; `edge` is the u/v window's lower edge (-BIAS on
-// primary casts, BIAS otherwise).
-__device__ __forceinline__ bool fl_mt_closest(float (*sw)[FL_TRI_CHUNK][16], int t,
-                                              const fl_ray& r, float edge, float& s,
-                                              float& u, float& v) {
-    float det = fl_dot16(sw[0][t], r.f);
-    float udet = fl_dot16(sw[1][t], r.f);
-    float vdet = fl_dot16(sw[2][t], r.f);
-    float sdet = fl_dot16(sw[3][t], r.f);
-    float inv = 1.0f / det;
-    u = udet * inv;
-    v = vdet * inv;
-    s = sdet * inv;
-    bool valid = fabsf(det) >= FL_BIAS;
-    valid = valid && (u >= edge) && (u <= 1.0f);
-    valid = valid && (v >= edge) && (u + v <= 1.0f);
-    return valid && (s > FL_BIAS) && (s <= r.max_len);
-}
-
-struct fl_hit {
-    float s, u, v;
-    int col;  // triangle column, -1 on a miss
-};
-
-// Closest hit over all tp triangles: every thread of the block calls it
-// (the triangle rows pass through shared memory in chunks); only threads
-// with `want` cast. Ties in s go to the lowest column. On a miss s, u, v
-// are 0 and col is -1.
-__device__ __forceinline__ fl_hit fl_block_closest(const float* __restrict__ w4, int tp,
-                                                   float (*sw)[FL_TRI_CHUNK][16], bool want,
-                                                   const fl_ray& r, float edge) {
-    float best_s = FL_POW32, best_u = 0.0f, best_v = 0.0f;
-    int best_col = -1;
-    if (__syncthreads_or(want)) {
-        for (int c0 = 0; c0 < tp; c0 += FL_TRI_CHUNK) {
-            int cnt = tp - c0 < FL_TRI_CHUNK ? tp - c0 : FL_TRI_CHUNK;
-            fl_stage(w4, tp, c0, cnt, sw);
-            __syncthreads();
-            if (want) {
-                for (int t = 0; t < cnt; ++t) {
-                    float s, u, v;
-                    if (fl_mt_closest(sw, t, r, edge, s, u, v) && s < best_s) {
-                        best_s = s;
-                        best_u = u;
-                        best_v = v;
-                        best_col = c0 + t;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
-    fl_hit h;
-    bool hit = best_col >= 0;
-    h.s = hit ? best_s : 0.0f;
-    h.u = hit ? best_u : 0.0f;
-    h.v = hit ? best_v : 0.0f;
-    h.col = best_col;
-    return h;
-}
-
 // ---- the 16-float triangle record (ops/intersect_sparse.py tri_record) ----
 //
 // n, v0.n, e2 x v0, v0 x e1, e2, e1: the distinct magnitudes of the 25
 // non-zero terms of a triangle's 64-float W rows. A test sums only those
 // terms, in W's k order, the signs as exact negations (24 multiplies, 21
-// adds), so det, udet, vdet and sdet equal the 64-term sums of
-// fl_mt_closest (and of W's any-hit window) wherever W's zero products
-// meet finite ray features (a zero may differ in sign). The traversal
-// kernels (intersect.cu), the worklist casts (sparse.cu) and POST and FRAME
-// (fused.cu) test it. Quads: a = (n, v0.n), b = (e2 x v0,
+// adds), so det, udet, vdet and sdet equal the 64-term sums of W's rows
+// (ops/intersect_kernel.py closest_hit_plain, any_hit_plain) wherever W's
+// zero products meet finite ray features (a zero may differ in sign). The
+// traversal kernels (intersect.cu), the worklist casts (sparse.cu) and PRE,
+// POST and FRAME (fused.cu) test it. Quads: a = (n, v0.n), b = (e2 x v0,
 // (v0 x e1).x), c = ((v0 x e1).yz, e2.xy), e = (e2.z, e1).
 
 // A ray of the record test: origin, direction (a zero direction becomes
-// +z, as fl_make_ray) and the components of vec(d (x) o) that meet the
+// +z, as ops/intersect_kernel.py _safe_dirs) and the components of vec(d (x) o) that meet the
 // record's non-zero terms (k = 8, 9, 10, 12, 13, 14 of ray_features).
 struct fl_rray {
     float o[3], d[3];
@@ -415,7 +312,7 @@ __device__ __forceinline__ bool fl_sign_of(float x, bool det_pos) {
 }
 
 // The two-sided closest-hit test of triangle t against ray r: the accept
-// window of fl_mt_closest, after exact early rejects, each taking only
+// window of closest_hit_plain, after exact early rejects, each taking only
 // pairs that the window rejects too (no comparison lets a NaN through):
 // |det| < BIAS; sdet zero or of the other sign than det (s <= 0); and,
 // with `cull_uv` (the window's u / v edge is above 0: bounce casts), udet
@@ -470,6 +367,11 @@ __device__ __forceinline__ bool fl_rec_any(const Q& q, int t, const fl_rray& r) 
     return valid && (s > FL_BIAS) && (s <= r.max_len);
 }
 
+struct fl_hit {
+    float s, u, v;
+    int col;  // triangle column, -1 on a miss
+};
+
 // A whole scene's records in shared memory, triangle t's four quads at
 // rec[4t .. 4t + 3] (64 bytes), read as q[p][t].
 struct fl_rec_table {
@@ -503,7 +405,7 @@ __device__ __forceinline__ void fl_rec_stage(const float* __restrict__ w4, int t
 
 // Closest hit of one ray over the whole table, in this thread alone (no
 // barrier): ties in s go to the lowest column; on a miss s, u, v are 0
-// and col is -1 (fl_block_closest's result).
+// and col is -1 (closest_hit_plain's result).
 __device__ __forceinline__ fl_hit fl_table_closest(const float4* rec, int tp, const fl_rray& r,
                                                    float edge) {
     fl_rec_table q = {rec};

@@ -30,13 +30,14 @@ def _scene_args(state, w4, ids, mat, cam):
 
 
 def _table_tris(tp: int) -> None:
-    """POST and FRAME keep the whole record table in shared memory."""
+    """PRE, POST and FRAME keep the whole record table in shared memory."""
     if tp > MAX_TRIS:
         raise ValueError(f"{tp} triangles: the fused kernels hold at most {MAX_TRIS}")
 
 
 def _sp_pre_launch(lib, stream, state, dirs, w4, ids, mat, cam, resample: bool, config):
     n, tp = _scene_args(state, w4, ids, mat, cam)
+    _table_tris(tp)
     _native.require(dirs, "dirs", torch.float32, (3, n), state.device)
     _native.check(lib.fl_sp_pre(
         _native.ptr(state), _native.ptr(dirs), _native.ptr(w4), tp, _native.ptr(ids),

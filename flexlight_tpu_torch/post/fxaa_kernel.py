@@ -15,6 +15,8 @@ def _fxaa_launch(lib, stream, img: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"img: expected [H, W, 4], got {tuple(img.shape)}")
     h, w = img.shape[0], img.shape[1]
     _native.require(img, "img", torch.float32, (h, w, 4), img.device)
+    if img.data_ptr() % 16:
+        raise ValueError("img: the kernel loads a texel as 16 bytes and needs them aligned")
     out = torch.empty_like(img)
     _native.check(lib.fl_fxaa(_native.ptr(img), h, w, _native.ptr(out), stream),
                   "fxaa")

@@ -9,8 +9,8 @@ Run on a machine with a card:
 
 Expected agreement is bit for bit (the kernels take the plain versions'
 operations in the same order, built without FMA contraction), except the
-final pass and FXAA, whose few divisions by constants torch may round
-differently on the card (1e-5). The fused PRE / POST kernels update their
+final pass, whose gamma curve torch's pow may round differently on the
+card (1e-5). The fused PRE / POST kernels update their
 state in place, so each side gets its own copy of the recorded state and
 the two states must be identical."""
 
@@ -76,7 +76,7 @@ def test_kernel_matches_plain_on_the_card(frame, name):
     ref = ref if isinstance(ref, tuple) else (ref,)
     for a, b in zip(got, ref):
         assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
-        if name.startswith("sp_"):
+        if name.startswith("sp_") or name == "fxaa":
             assert torch.equal(a, b)
         elif a.dtype.is_floating_point:
             torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
@@ -428,13 +428,29 @@ def test_frame_is_exact_on_crafted_primary_edges_on_the_card(dev, name):
     assert got.is_cuda and identical(got, PLAIN.fused_frame(*args))
 
 
+@pytest.mark.parametrize("t_total", [1, 20])
+@pytest.mark.parametrize("name", ["u_zero", "u_on_edge", "u_past_edge", "det_minus_bias",
+                                  "sdet_zero", "v_zero"])
+def test_pre_is_exact_on_crafted_primary_edges_on_the_card(dev, name, t_total):
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from test_torch_fused_record import (check_frame_edge, frame_edge_args, identical,
+                                         pre_edge_args)
+
+    check_frame_edge(name, frame_edge_args(name, dev))
+    args = pre_edge_args(name, t_total, dev)
+    got = KERNELS.sp_pre(*_clone(args))
+    assert got.is_cuda and identical(got, PLAIN.sp_pre(*_clone(args)))
+
+
 def test_post_and_frame_at_the_triangle_cap_on_the_card(dev):
     """The 1024-triangle scene: a 64 KB record table in dynamic shared
-    memory (past the 48 KB that needs the kernels' attribute)."""
+    memory (past the 48 KB that needs the kernels' attribute): PRE, every
+    POST call and FRAME."""
     from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
     from flexlight_tpu_torch.ops import fused as F
     from flexlight_tpu_torch.ops.buffers import build_scene_buffers
-    from test_torch_fused_record import cap_engine, frame_args, identical, post_calls
+    from test_torch_fused_record import (cap_engine, frame_args, identical, post_calls,
+                                         pre_args)
 
     e = cap_engine(dev)
     cfg = Config(temporal=False, filter=False, antialiasing=None, rng="counter",
@@ -443,6 +459,8 @@ def test_post_and_frame_at_the_triangle_cap_on_the_card(dev):
         assert a[3].shape[1] == F.MAX_TRIS
         assert identical(KERNELS.sp_post(*_clone(a)), PLAIN.sp_post(*_clone(a)))
     args = frame_args(build_scene_buffers(e.scene, dev), e.camera, 48, cfg, dev)
+    pre = pre_args(args)
+    assert identical(KERNELS.sp_pre(*_clone(pre)), PLAIN.sp_pre(*_clone(pre)))
     got = KERNELS.fused_frame(*args)
     assert identical(got, PLAIN.fused_frame(*args))
     assert (got[F.FR_PPART + 3] >= 0).sum() > 100
@@ -470,6 +488,20 @@ def test_frame_lane_counts_on_the_card(wave_frame, dev):
     lanes, busy = stats.tolist()
     assert ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all()
     assert busy == live[0] > 0 and lanes >= busy and lanes % 32 == 0
+
+
+@pytest.mark.parametrize("case", ["blocky", "1x1", "7x37", "23x9", "tile_borders",
+                                  "all_edges", "flat"])
+def test_fxaa_on_tile_edges_on_the_card(dev, case):
+    """test_torch_kernels_emulated's FXAA images: sizes no multiple of a
+    tile, edges along and across the tile borders, every pixel an edge, a
+    flat colour."""
+    from flexlight_tpu_torch.post import fxaa_kernel as XK
+    from test_torch_kernels_emulated import fxaa_image
+
+    img = torch.from_numpy(fxaa_image(case)).to(dev)
+    got = XK.fxaa_cuda(img)
+    assert got.is_cuda and torch.equal(got, XK.fxaa_cuda.plain(img))
 
 
 @pytest.mark.parametrize("t_total", [1, 20, 256, 257, 773])

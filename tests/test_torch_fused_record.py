@@ -1,8 +1,8 @@
-"""POST over its live-ray list and the whole-frame kernel with lane refill
-(csrc/fused.cu), compiled for the host (-DFL_EMULATE: one block of one
-thread takes the whole list, and every ray in turn), against their plain
-versions, which keep W's 64-term products (ops/fused.py sp_post_plain,
-fused_frame_plain).
+"""PRE, POST over its live-ray list and the whole-frame kernel with lane
+refill (csrc/fused.cu), compiled for the host (-DFL_EMULATE: one block of
+one thread takes every ray, or the whole list, in turn), against their
+plain versions, which keep W's 64-term products (ops/fused.py
+sp_pre_plain, sp_post_plain, fused_frame_plain).
 
 The kernels test the 16-float triangle record with exact early rejects
 (csrc/trace.cuh), which they build from W in shared memory; the record's
@@ -10,14 +10,15 @@ products equal W's wherever W's zero products meet finite ray features,
 but a zero may come out with the other sign. So the crafted cases put
 (ray, triangle) pairs on each reject's edge, on the bounce casts (POST:
 the shadow any hit and the next closest hit, whose u / v edge is BIAS)
-and on the primary cast (FRAME: the relaxed -BIAS edge, where u = 0 is
-accepted and its zero's sign reaches the output): |det| = BIAS and just
+and on the primary cast (FRAME and PRE: the relaxed -BIAS edge, where u =
+0 is accepted and its zero's sign reaches the output; PRE's with the
+crafted triangle alone and last among 19 far-off ones): |det| = BIAS and just
 below, sdet = 0, udet = 0, vdet = 0, u on the window's edge and just past
 it, a back face. The outputs must be identical (==, NaN equal to NaN; a
 zero equals a zero of either sign, as everywhere the kernels are held).
 The other cases: a bounce where every ray is dead, rays dying at each
 bounce, spp 2, both RNG modes, and a scene at the 1024-triangle cap (a
-64 KB record table); the list lists each live ray once; FRAME's lane
+64 KB record table: PRE, every POST call and FRAME); the list lists each live ray once; FRAME's lane
 counts (`lane_stats`) count every live ray-bounce once.
 
 As in tests/test_torch_kernels_emulated.py, the plain versions take a
@@ -189,6 +190,24 @@ def frame_edge_args(name, device="cpu"):
             torch.tensor(0.5, device=device), cos, cfg)
 
 
+def pre_edge_args(name, t_total, device="cpu"):
+    """PRE's arguments of FRAME_EDGES' case `name`: its triangle last after
+    t_total - 1 far-off fillers (x >= 20, half of them back faces, each met
+    by the rays' planes but outside its window), RAYS rays from the camera
+    at (0, y, 0) along +z, the last with a zero direction (cast as +z)."""
+    a, b, y, x, flip, _ = FRAME_EDGES[name]
+    fillers = [(1.0, 1.0, 20.0 + 2 * k, 1.0, k % 2 == 1) for k in range(t_total - 1)]
+    tb, camera = _triangle_scene(
+        fillers + [(a, b, x, 0.0 if name == "sdet_zero" else 1.0, flip)], device)
+    w4, ids, mat = _scene_tables(tb, camera)
+    dirs = torch.tensor([0.0, 0.0, 1.0], device=device)[:, None].repeat(1, RAYS)
+    dirs[:, -1] = 0.0
+    cfg = Config(temporal=False, filter=False, antialiasing=None, rng="counter",
+                 max_reflections=3)
+    return (torch.zeros((F.SP_C, RAYS), dtype=torch.float32, device=device), dirs, w4, ids,
+            mat, torch.tensor([0.0, y, 0.0], device=device), False, cfg)
+
+
 def _products(w4, o, d):
     """(det, udet, vdet, sdet) [T] of the record of each triangle of W with
     the ray (o, d), as the kernels sum them."""
@@ -272,6 +291,14 @@ def frame_args(tb, camera, size, cfg, device="cpu"):
                        dtype=torch.float32, device=device)
     return (dirs, ndc, w4, ids, mat, tb.lights, tb.ambient, tb.albedo_tab, tb.pbr_tab,
             tb.tpo_tab, cam, torch.tensor(0.5, device=device), cos, cfg)
+
+
+def pre_args(fargs):
+    """PRE's arguments (casting, on a zero state) for the rays of
+    fused_frame's arguments `fargs` (frame_args)."""
+    dirs, _, w4, ids, mat = fargs[:5]
+    state = torch.zeros((F.SP_C, dirs.shape[1]), dtype=torch.float32, device=dirs.device)
+    return (state, dirs, w4, ids, mat, fargs[10], False, fargs[-1])
 
 
 def post_calls(e, size, cfg, device="cpu"):
@@ -365,6 +392,21 @@ def test_frame_is_exact_on_the_primary_casts_reject_edges(lib, exact_sqrt, name)
 
 
 @needs_cxx
+@pytest.mark.parametrize("t_total", [1, 20])
+@pytest.mark.parametrize("name", sorted(FRAME_EDGES))
+def test_pre_is_exact_on_the_primary_casts_reject_edges(lib, exact_sqrt, name, t_total):
+    """PRE's cast on the record table, on FRAME's crafted primaries: every
+    row of the state, the crafted triangle alone or last of 20."""
+    check_frame_edge(name, frame_edge_args(name))
+    args = pre_edge_args(name, t_total)
+    assert args[2].shape[1] == t_total
+    got = SK._sp_pre_launch(lib, 0, *_clone(args))
+    ref = F.sp_pre_plain(*_clone(args))
+    assert identical(got, ref)
+    assert bool((ref[F.PPART + 3] >= 0).all()) == FRAME_EDGES[name][-1]
+
+
+@needs_cxx
 @pytest.mark.parametrize("rng_mode", ["counter", "hash"])
 def test_post_is_exact_as_rays_die_at_each_bounce(lib, exact_sqrt, host_sin, rng_mode):
     """Every POST call of a theater frame (16x16, 5 bounces): rays die at
@@ -383,8 +425,8 @@ def test_post_is_exact_as_rays_die_at_each_bounce(lib, exact_sqrt, host_sin, rng
 
 @needs_cxx
 def test_post_and_frame_are_exact_at_the_triangle_cap(lib, exact_sqrt):
-    """The 1024-triangle scene (a 64 KB record table): every POST call of
-    a fused_split frame and the fused_frame block at 2 spp."""
+    """The 1024-triangle scene (a 64 KB record table): PRE's cast, every
+    POST call of a fused_split frame and the fused_frame block at 2 spp."""
     e = cap_engine("cpu")
     cfg = Config(temporal=False, filter=False, antialiasing=None, rng="counter",
                  max_reflections=3, samples_per_ray=2)
@@ -393,6 +435,9 @@ def test_post_and_frame_are_exact_at_the_triangle_cap(lib, exact_sqrt):
         assert identical(SK._sp_post_launch(lib, 0, *_clone(a)), F.sp_post_plain(*_clone(a)))
     tb = build_scene_buffers(e.scene, "cpu")
     args = frame_args(tb, e.camera, 10, cfg)
+    pre = pre_args(args)
+    got = SK._sp_pre_launch(lib, 0, *_clone(pre))
+    assert identical(got, F.sp_pre_plain(*_clone(pre)))
     got = SK._fused_frame_launch(lib, 0, *args)
     assert identical(got, F.fused_frame_plain(*args))
     assert (got[F.FR_PPART + 3] >= 0).sum() > 20

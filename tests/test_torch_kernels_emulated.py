@@ -41,6 +41,7 @@ from flexlight_tpu_torch.ops import rng
 from flexlight_tpu_torch.ops import vec3 as v3
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32
 from flexlight_tpu_torch.post import filter_kernel as FK
+from flexlight_tpu_torch.post import fxaa as X
 from flexlight_tpu_torch.post import fxaa_kernel as XK
 from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
 
@@ -144,12 +145,80 @@ def test_final_pass_matches(lib, frame_inputs, hdr):
         torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
-def test_fxaa_kernel_is_bit_exact(lib, frame_inputs):
+def fxaa_image(case: str) -> np.ndarray:
+    """[H, W, 4] float32 inputs of FXAA against its tiles (csrc/fxaa.cu: 32 x
+    16 pixels with a halo of 7): blocks of 8 px with alpha 0 or 1; seeded
+    random cells at sizes that are no multiple of a tile; bars of 2 px whose
+    edges run along the tile borders (rows 15 | 16, columns 31 | 32, 63 |
+    64; and rows 7 | 8, a border of 8-row tiles) and across them, in both
+    spans, beside a staircase; a 1-px checkerboard (every pixel an edge); a
+    flat colour."""
     rng = np.random.default_rng(6)
-    blocky = np.kron(rng.uniform(0, 1, (4, 5, 4)), np.ones((8, 8, 1))).astype(np.float32)
-    blocky[..., 3] = (blocky[..., 3] > 0.3).astype(np.float32)
-    for img in (frame_inputs["fxaa"][0], torch.from_numpy(blocky)):
-        _same([XK._fxaa_launch(lib, 0, img)], [XK.fxaa_cuda.plain(img)])
+    if case == "blocky":
+        img = np.kron(rng.uniform(0, 1, (4, 5, 4)), np.ones((8, 8, 1))).astype(np.float32)
+        img[..., 3] = (img[..., 3] > 0.3).astype(np.float32)
+        return img
+    if case in ("1x1", "7x37", "23x9"):
+        h, w = (int(x) for x in case.split("x"))
+        img = np.kron(rng.uniform(0, 1, ((h + 1) // 2, (w + 2) // 3, 4)), np.ones((2, 3, 1)))
+        img = img[:h, :w].astype(np.float32)
+        img[..., 3] = (img[..., 3] > 0.2).astype(np.float32)
+        return img
+    if case == "tile_borders":
+        h, w = 24, 72
+        img = np.full((h, w, 4), 0.1, np.float32)
+        img[..., 3] = 1.0
+        bright = rng.uniform(0.6, 1.0, 4).astype(np.float32)
+        bright[3] = 1.0
+        img[8:10, :] = bright                     # along the border of rows 7 | 8
+        img[16:18, :] = bright                    # along the border of rows 15 | 16
+        img[12:14, 20:50] = bright                # across columns 31 | 32
+        img[:, 32:34] = bright                    # along the border of columns 31 | 32
+        img[3:21, 62:64] = bright                 # ends at 63 | 64, across rows 7 | 8, 15 | 16
+        for k in range(h):                        # a staircase across every border
+            img[k, 2 * k + 5:2 * k + 8] = bright
+        return img
+    if case == "all_edges":
+        h, w = 20, 40
+        img = rng.uniform(0.3, 1.0, (h, w, 4)).astype(np.float32)
+        img[..., 3] = 1.0
+        img[(np.add.outer(np.arange(h), np.arange(w)) % 2) == 1, :3] = 0.0
+        return img
+    if case == "flat":
+        img = np.empty((17, 35, 4), np.float32)
+        img[:] = [0.4, 0.5, 0.6, 1.0]
+        return img
+    raise ValueError(case)
+
+
+def low_contrast(img: torch.Tensor) -> torch.Tensor:
+    """[H, W] bool: the pixels that FXAA's 3x3 test keeps as they are
+    (post/fxaa.py's expressions)."""
+    luma = X._luma(img)
+    cross = [X._shift(luma, dy, dx) for dy, dx in ((-1, 0), (0, -1), (1, 0), (0, 1))]
+    lo = torch.minimum(luma, torch.minimum(torch.minimum(cross[0], cross[1]),
+                                           torch.minimum(cross[2], cross[3])))
+    hi = torch.maximum(luma, torch.maximum(torch.maximum(cross[0], cross[1]),
+                                           torch.maximum(cross[2], cross[3])))
+    return (hi - lo) < torch.clamp_min(hi * X.EDGE_THRESHOLD, X.EDGE_THRESHOLD_MIN)
+
+
+FXAA_CASES = ("blocky", "1x1", "7x37", "23x9", "tile_borders", "all_edges", "flat")
+
+
+@pytest.mark.parametrize("case", ("frame",) + FXAA_CASES)
+def test_fxaa_kernel_is_bit_exact(lib, frame_inputs, case):
+    img = frame_inputs["fxaa"][0] if case == "frame" else torch.from_numpy(fxaa_image(case))
+    got = XK._fxaa_launch(lib, 0, img)
+    _same([got], [XK.fxaa_cuda.plain(img)])
+    keep = low_contrast(img)
+    if case == "all_edges":
+        assert not keep.any()
+    elif case == "flat":
+        assert keep[1:-1, 1:-1].all() and not keep[0].any()
+    elif case != "1x1":
+        assert keep.any() and not keep.all()
+    assert torch.equal(got[keep], img[keep])
 
 
 def test_launch_checks_reject_what_the_kernel_does_not_take(lib):
@@ -162,6 +231,8 @@ def test_launch_checks_reject_what_the_kernel_does_not_take(lib):
         FK._final_blur_launch(lib, 0, *planes[:4], planes[4][:, :-1], True)
     with pytest.raises(ValueError):
         XK._fxaa_launch(lib, 0, torch.zeros(8, 8, 4).transpose(0, 1))
+    with pytest.raises(ValueError):   # texels not 16-byte aligned
+        XK._fxaa_launch(lib, 0, torch.zeros(8 * 8 * 4 + 1)[1:].view(8, 8, 4))
 
 
 @pytest.fixture
