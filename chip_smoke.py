@@ -24,8 +24,10 @@ Phases, one line each (any failure exits non-zero):
      stand-in's 1080p camera rays against its first 4095 triangles (held
      against the plain version on every 16th ray); the shade kernel on the
      state of each of the 5 bounces of that scheme="kernel" frame with
-     shade_kernel=True; the three disc passes on every call (3 + 3 + 1) of
-     one theater (fused_split), one dragon stand-in (sparse) and one wave
+     shade_kernel=True (per call its shaded rays, and its list, POST's
+     list kernel on its state, held and timed as a sub-row); the three
+     disc passes on every call (3 + 3 + 1) of one theater (fused_split),
+     one dragon stand-in (sparse) and one wave
      (fused) frame, with per-frame sums of time and bound, and FXAA on
      the FXAA input of the theater frame and on an edge-heavy image of
      the same size (seeded random 2 x 2 cells), each with its share of
@@ -40,7 +42,8 @@ Phases, one line each (any failure exits non-zero):
      timed on every cast of the frame, 5 + 5, against their summed bound,
      with the ray-triangle tests their warp walk issues beside those the
      bound counts), and the interp_shade kernel on the state of each of its 5
-     bounces; and the whole-frame kernel of scheme="fused"
+     bounces (with its alive list, `alive_list`, held and timed as a
+     sub-row); and the whole-frame kernel of scheme="fused"
      (fused_frame) on wave's 1080p camera rays at 1 spp (the frame the port
      renders) and at 2 spp, 5 bounces, with its live ray-bounces and the
      share of its lane-slots that did live work (its `lane_stats` counts,
@@ -78,12 +81,13 @@ Phases, one line each (any failure exits non-zero):
      1080p: ~20 s per plain frame).
   7. the shade-kernel paths, through the same entry points with the
      renderer's shade_kernel switch on: (a) the dragon stand-in at 1080p as
-     in phase 6, which must launch interp_shade 5x per frame (shade never)
-     besides the worklist kernels' 10 / 9 / 5 / 5, its frames against phase
-     6's plain frames (the plain shading versions are the eager stage
-     functions, so those frames serve); (b) theater at 1080p on
-     scheme="kernel", 2 frames, which must launch shade 5x per frame
-     (interp_shade never), against their plain frames.
+     in phase 6, which must launch interp_shade and its alive list 5x per
+     frame (shade and POST's list never) besides the worklist kernels' 10 /
+     9 / 5 / 5, its frames against phase 6's plain frames (the plain
+     shading versions are the eager stage functions, so those frames
+     serve); (b) theater at 1080p on scheme="kernel", 2 frames, which must
+     launch shade and its list (POST's list kernel) 5x per frame
+     (interp_shade and the alive list never), against their plain frames.
   8. the fused path: wave (scenes.wave: 4 pillars on a plane, 50
      triangles, 1 light, a 2x2048 PBR atlas) at 1080p, full pipeline,
      through FlexLight(...).renderer = "pathtracer" with the renderer's
@@ -99,8 +103,10 @@ and resample_bound_ms, and the 1024-triangle call's cap_ms,
 cap_plain_ms_16th (the plain version on every 16th ray), cap_bound_ms and
 cap_w_bound_ms; FXAA: the frame's input, with the edge-heavy image's
 edge_ms, edge_plain_ms and edge_bound_ms; POST and its list kernel: the
-sums over the frame's 5 calls; fused_frame: the 1-spp launch, with the 2-spp
-launch's ms_2spp, plain_ms_2spp and bound_ms_2spp; the four worklist kernels' ms and
+sums over the frame's 5 calls; shade, interp_shade and the alive list:
+the sums over their frame's 5 calls, shade with its lists' list_ms,
+list_plain_ms, list_bound_ms and list_launches; fused_frame: the 1-spp
+launch, with the 2-spp launch's ms_2spp, plain_ms_2spp and bound_ms_2spp; the four worklist kernels' ms and
 bound_ms are those of their first compared call, frame_ms and
 frame_bound_ms the sums over the frame's calls; the flags add
 frame_all_pairs_bound_ms, the bound of testing every live pair; the
@@ -371,6 +377,8 @@ def drive(args, dev, smi: str) -> int:
         from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops import fused_kernel as SK
+        from flexlight_tpu_torch.ops import shade as H
+        from flexlight_tpu_torch.ops import shade_kernel as HK
         from flexlight_tpu_torch.ops.intersect import BIAS, POW32
         from flexlight_tpu_torch.ops.geometry import world_geometry
         from flexlight_tpu_torch.ops.intersect_kernel import _safe_dirs, build_w4
@@ -633,6 +641,24 @@ def drive(args, dev, smi: str) -> int:
         report(name, label, count, err, k_ms, p_ms, bnd, main, extra)
         return k_ms, p_ms
 
+    def check_list(name, kernel, plain, state, words, label, main):
+        """A list kernel against its plain version on its own copy of the
+        state (the alive list writes m there): the same count, the same
+        entries (in any order of its warps' runs), each once, and the same
+        state; timed, and bounded by the `words` it moves and one compare a
+        ray. Returns (kernel ms, plain ms, bound ms)."""
+        ka, pa = state.clone(), state.clone()
+        got, count = kernel(ka)
+        ref, ref_count = plain(pa)
+        k = int(ref_count)
+        differ = (int(int(count) != k) + int((got[:k].sort().values != ref[:k]).sum())
+                  + differences(ka, pa, False)[0])
+        bnd = bound(f32 * words, state.shape[1])
+        l_ms = cuda_ms(lambda: kernel(ka))
+        lp_ms = cuda_ms(lambda: plain(pa))
+        report(name, label, differ, 0.0, l_ms, lp_ms, bnd, main)
+        return l_ms, lp_ms, bnd[0]
+
     def frame_sums(name, sums):
         """A kernel's numbers in the kernels line are per frame: the sums of
         its calls."""
@@ -811,17 +837,11 @@ def drive(args, dev, smi: str) -> int:
                                  main=(i == 0))
         post_sum = [post_sum[0] + k_ms, post_sum[1] + p_ms, post_sum[2] + bnd[0]]
         # the live-ray list (launched by every POST call, and timed within it)
-        got, count = SK.sp_live_list(state)
-        ref, ref_count = F.live_list_plain(state)
-        k = int(ref_count)
-        differ = int(int(count) != k) + int((got[:k].sort().values != ref[:k]).sum())
-        list_bnd = bound(f32 * (n + live + 1), n)
-        l_ms = cuda_ms(lambda: SK.sp_live_list(state))  # noqa: B023
-        lp_ms = cuda_ms(lambda: F.live_list_plain(state))  # noqa: B023
-        report("sp_live_list", f"bounce {i}, {live} of {n} rays live; the same rays, each once, "
-               f"in any order of the warps' runs", differ, 0.0, l_ms, lp_ms, list_bnd,
-               main=(i == 0))
-        list_sum = [list_sum[0] + l_ms, list_sum[1] + lp_ms, list_sum[2] + list_bnd[0]]
+        l_ms, lp_ms, l_bnd = check_list(
+            "sp_live_list", SK.sp_live_list, F.live_list_plain, state, n + live + 1,
+            f"bounce {i}, {live} of {n} rays live; the same rays, each once, in any order "
+            f"of the warps' runs", main=(i == 0))
+        list_sum = [list_sum[0] + l_ms, list_sum[1] + lp_ms, list_sum[2] + l_bnd]
         print(f"[post] bounce {i}: POST {k_ms:.3f} ms (its list kernel {l_ms:.3f} ms) at {live} "
               f"of {n} rays live, {k_ms * 1e6 / max(live, 1):.3f} ns a live ray; bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}, {k_ms / bnd[0]:.1f}x)", flush=True)
@@ -841,8 +861,12 @@ def drive(args, dev, smi: str) -> int:
                 + 6 * per_out + n_lights * (OPS_LIGHT + per_call + 2 * per_out)
                 + lights_on * OPS_LIGHT_ON)
 
+    # Each call's wrapper first writes the list of the rays it shades (shade:
+    # POST's list of the rays with m = 1; interp_shade: its alive list, which
+    # also writes m = 0 for the rays that are not alive) and then walks it;
+    # the kernel's time is the wrapper's, its list's the sub-row's.
     for name in ("shade", "interp_shade"):
-        sums = [0.0, 0.0, 0.0]
+        sums, list_sums = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
         for call in captured[name]:
             state, i = call[0], call[-2]
             lights = call[4] if name == "shade" else call[5]
@@ -850,26 +874,59 @@ def drive(args, dev, smi: str) -> int:
             n = state.shape[1]
             extra = 1 if i == 1 else 0
             if name == "shade":
-                live = int((state[F.SURF] > 0).sum())
+                # every ray's m; a listed ray's words (the list's bytes are
+                # its own sub-row's)
+                live = listed = int((state[F.SURF] > 0).sum())
                 nbytes = f32 * (n + live * (SHADE_WORDS[0] + SHADE_WORDS[1] + 2 * extra)
                                 + 6 * n_lights)
                 ops = live * shade_ops(i, n_lights, lights_on)
+                list_args = ("sp_live_list", SK.sp_live_list, F.live_list_plain, state,
+                             n + live + 1)
             else:
                 # the rays the step shades: alive ones that the importance
-                # test keeps, as the plain version decides
+                # test keeps, as the plain version decides. Every ray's
+                # alive read and m written; an alive ray that the test kills
+                # reads its importancy and original colour and writes alive
+                listed = int((state[F.ALIVE] > 0).sum())
                 probe = PLAIN.interp_shade(*clone(call))[0]
                 shaded = probe[F.SURF] > 0
                 live = int(shaded.sum())
                 tris = int(torch.unique(call[0][F.TRI][shaded]).numel())
-                nbytes = f32 * (2 * n + live * (STEP_WORDS[0] + STEP_WORDS[1] + 2 * extra)
+                nbytes = f32 * (2 * n + (listed - live) * 7
+                                + live * (STEP_WORDS[0] + STEP_WORDS[1] + 2 * extra)
                                 + tris * MAT_C + 6 * n_lights)
                 ops = live * (OPS_BOUNCE_PRE + OPS_TEX_SELECT + shade_ops(i, n_lights, lights_on))
                 del probe
+                # the list reads alive, writes m of the rays that are not
+                # alive, the entries and the count
+                list_args = ("alive_list", HK.alive_list, H.alive_list_plain, state, 2 * n + 1)
             bnd = bound(nbytes, ops)
             k_ms, p_ms = check_state(name, f"bounce {i}, {live} of {n} rays shaded", call, bnd,
                                      main=(i == 0))
             sums = [sums[0] + k_ms, sums[1] + p_ms, sums[2] + bnd[0]]
+            l_ms, lp_ms, l_bnd = check_list(
+                *list_args, f"{name}'s list, bounce {i}, {listed} of {n} rays listed; the same "
+                f"rays, each once, in any order of the warps' runs",
+                main=(name == "interp_shade" and i == 0))
+            list_sums = [list_sums[0] + l_ms, list_sums[1] + lp_ms, list_sums[2] + l_bnd]
+            # the 32-byte sectors of a state row (8 rays) that hold a listed ray
+            listed_rows = state[F.SURF if name == "shade" else F.ALIVE] > 0
+            sectors = int(torch.nn.functional.pad(listed_rows.int(), (0, -n % 8)).reshape(-1, 8)
+                          .amax(dim=1).sum())
+            print(f"[shade] {name} bounce {i}: {k_ms:.3f} ms (its list {l_ms:.3f} ms, bound "
+                  f"{l_bnd:.4f}) at {live} of {n} rays shaded, {listed} listed, "
+                  f"{k_ms * 1e6 / max(live, 1):.3f} ns a shaded ray; {sectors} of "
+                  f"{(n + 7) // 8} sectors of a row hold a listed ray; bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}, {k_ms / bnd[0]:.1f}x)", flush=True)
         frame_sums(name, sums)
+        if name == "shade":
+            results["shade"].update(list_ms=list_sums[0], list_plain_ms=list_sums[1],
+                                    list_bound_ms=list_sums[2])
+        else:
+            frame_sums("alive_list", list_sums)
+        print(f"[shade] {name} per frame ({len(captured[name])} calls): {sums[0]:.3f} ms "
+              f"(its lists {list_sums[0]:.3f} ms, bound {list_sums[2]:.4f}), bound "
+              f"{sums[2]:.4f} ms ({sums[0] / sums[2]:.1f}x)", flush=True)
         del captured[name]
     torch.cuda.empty_cache()
 
@@ -1255,7 +1312,10 @@ def drive(args, dev, smi: str) -> int:
         ops = needed_test_ops(a, needed, True, edge)
         slots = needed.amax(dim=1)
         # tms is read at the slots the walk reads, tlist the same
-        nbytes = f32 * (11 * n + rt + int(slots.sum())) + tile_bytes(tlist, slots)
+        # every ray's max_len in and its 4 outputs out, a live ray's origin
+        # and direction
+        nbytes = (f32 * (5 * n + 6 * live_rays(ml) + rt + int(slots.sum()))
+                  + tile_bytes(tlist, slots))
         return bound(nbytes, live_rays(ml) * OPS_REC_RAY + ops), (tests, ops)
 
     def sparse_any_bound(a, out):
@@ -1273,7 +1333,9 @@ def drive(args, dev, smi: str) -> int:
         ops = occluded * OPS_REC_ACCEPT + needed_test_ops(a, needed, False, BIAS)
         open_rays = open_.sum(dim=1)
         slots = torch.where(open_rays > 0, counts, torch.minimum(counts, live.any(dim=1).int()))
-        nbytes = f32 * (7 * n + rt) + n + tile_bytes(tlist, slots)
+        # every ray's max_len in and its byte out, a live ray's origin and
+        # direction
+        nbytes = f32 * (n + 6 * live_rays(ml) + rt) + n + tile_bytes(tlist, slots)
         return bound(nbytes, live_rays(ml) * OPS_REC_RAY + ops), (tests, ops)
 
     def rays_label(ml):
@@ -1357,8 +1419,10 @@ def drive(args, dev, smi: str) -> int:
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the frames of phases 4-7, through the user's entry points ----------
-    # every kernel wrapper with its count: the KernelSet's and POST's list
-    counted = list(zip(KernelSet._fields, KERNELS)) + [("sp_live_list", SK.sp_live_list)]
+    # every kernel wrapper with its count: the KernelSet's and the lists of
+    # POST (and shade) and of interp_shade
+    counted = list(zip(KernelSet._fields, KERNELS)) + [("sp_live_list", SK.sp_live_list),
+                                                       ("alive_list", HK.alive_list)]
 
     def drive_frames(label, renderer, n_frames, step=None):
         """render_frame() n_frames times with every count set to 0 just
@@ -1425,7 +1489,8 @@ def drive(args, dev, smi: str) -> int:
         fail("the main path must take scheme='fused_split'")
     frames, launches = drive_frames("main", e.renderer, args.frames)
     expect_launches("the main path", launches, args.frames,
-                    {"sp_pre": 1, "sp_post": bounces, "sp_live_list": bounces})
+                    {"sp_pre": 1, "sp_post": bounces, "sp_live_list": bounces,
+                     "alive_list": 0})
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if launches[name] == 0]
     if idle:
@@ -1447,7 +1512,8 @@ def drive(args, dev, smi: str) -> int:
     e.renderer.scheme = "kernel"
     frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer, n2)
     idle = [name for name, c in kernel_launches.items()
-            if c == 0 and name not in in_place + sparse_names + ("fused_frame", "sp_live_list")]
+            if c == 0 and name not in in_place + sparse_names + ("fused_frame", "sp_live_list",
+                                                                 "alive_list")]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
@@ -1495,7 +1561,8 @@ def drive(args, dev, smi: str) -> int:
     frames, step_launches = drive_frames("shade-kernel dragon", e.renderer, args.frames,
                                          step=animate)
     expect_launches("the dragon with shade_kernel", step_launches, args.frames,
-                    dict(expect, interp_shade=bounces, shade=0))
+                    dict(expect, interp_shade=bounces, alive_list=bounces, shade=0,
+                         sp_live_list=0))
     check_frames("shade-kernel dragon", frames, plain_frames, (h, w, 3))
     del frames, plain_frames, e
     torch.cuda.empty_cache()
@@ -1510,8 +1577,8 @@ def drive(args, dev, smi: str) -> int:
     e.renderer.shade_kernel = True
     frames, shade_launches = drive_frames("shade-kernel theater", e.renderer, n2)
     expect_launches("theater on scheme='kernel' with shade_kernel", shade_launches, n2,
-                    {"shade": bounces, "interp_shade": 0, "closest_hit": bounces,
-                     "any_hit": bounces})
+                    {"shade": bounces, "sp_live_list": bounces, "interp_shade": 0,
+                     "alive_list": 0, "closest_hit": bounces, "any_hit": bounces})
     check_frames("shade-kernel theater", frames, plain_frames, (h, w, 3))
     del frames, plain_frames, e
     torch.cuda.empty_cache()
@@ -1534,7 +1601,8 @@ def drive(args, dev, smi: str) -> int:
     frames, fused_launches = drive_frames("fused-path", e.renderer, args.frames, step=animate)
     expect_launches("wave on scheme='fused'", fused_launches, args.frames,
                     {"fused_frame": 1, "sp_pre": 0, "sp_post": 0, "sp_live_list": 0,
-                     "closest_hit": 0, "any_hit": 0, "shade": 0, "interp_shade": 0})
+                     "closest_hit": 0, "any_hit": 0, "shade": 0, "interp_shade": 0,
+                     "alive_list": 0})
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if fused_launches[name] == 0]
     if idle:
@@ -1573,7 +1641,9 @@ def drive(args, dev, smi: str) -> int:
     for name in sparse_names:
         launches[name] = sparse_launches[name]
     launches["interp_shade"] = step_launches["interp_shade"]
+    launches["alive_list"] = step_launches["alive_list"]
     launches["shade"] = shade_launches["shade"]
+    results["shade"].update(list_launches=shade_launches["sp_live_list"])
     launches["fused_frame"] = fused_launches["fused_frame"]
     kernels = []
     for name, k in counted:

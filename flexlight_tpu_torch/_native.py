@@ -82,11 +82,13 @@ SIGNATURES = {
     # rec, tlist, counts, wt, ox, oy, oz, dx, dy, dz, max_len, ray_tile, n, hit, stream
     "fl_sparse_any": [_P, _P, _P, _I] + [_P] * 7 + [_I, _I, _P, _P],
     # state, req, tex, ndc, lights, n_lights, cam, seed, cos_sample_n, bounce,
-    # counter, n, stream
-    "fl_shade": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _P],
+    # counter, n, list, count (fl_sp_live_list's), stream
+    "fl_shade": [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _I, _P, _P, _P],
+    # state, n, list, count, stream
+    "fl_alive_list": [_P, _I, _P, _P, _P],
     # state, req, ndc, mat, atlas, lights, n_lights, cam, seed, cos_sample_n,
-    # bounce, counter, min_importance, n, stream
-    "fl_interp_shade": [_P] * 6 + [_I] + [_P] * 3 + [_I, _I, _F, _I, _P],
+    # bounce, counter, min_importance, n, list, count (fl_alive_list's), stream
+    "fl_interp_shade": [_P] * 6 + [_I] + [_P] * 3 + [_I, _I, _F, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -18,6 +18,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <mutex>
+
 #ifdef FL_EMULATE
 
 #include <vector>
@@ -177,4 +179,44 @@ __device__ __forceinline__ float fl_mod(float x, float y) {
     float m = fmodf(x, y);
     if (m != 0.0f && ((m < 0.0f) != (y < 0.0f))) m += y;
     return m;
+}
+
+// The persistent grid of a kernel whose blocks stride over their work: as
+// many blocks of `block` threads, with `smem` bytes of dynamic shared
+// memory each, as the card holds at once, and no more than `most` (one
+// block of one thread emulated). Above 48 KB the kernel is first allowed
+// its dynamic shared memory, on the current device. The answer is kept per
+// kernel type and device (for the last table size asked there: the kernels
+// that ask have signatures of their own); the grid size only spreads the
+// work, so any size is correct.
+#define FL_GRID_DEVICES 64
+template <typename K>
+static int fl_persistent_grid(K kernel, int block, size_t smem, int most) {
+#ifdef FL_EMULATE
+    (void)kernel;
+    (void)block;
+    (void)smem;
+    (void)most;
+    return 1;
+#else
+    static std::mutex lock;
+    static size_t asked[FL_GRID_DEVICES];  // smem + 1 of the last answer, 0 for none
+    static int resident[FL_GRID_DEVICES];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    std::lock_guard<std::mutex> hold(lock);
+    bool kept = dev >= 0 && dev < FL_GRID_DEVICES;
+    if (!kept || asked[dev] != smem + 1) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (smem > 48 * 1024)
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+        int r = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+        if (!kept) return r < most ? r : most;
+        resident[dev] = r;
+        asked[dev] = smem + 1;
+    }
+    return resident[dev] < most ? resident[dev] : most;
+#endif
 }

@@ -73,8 +73,6 @@
 // each test up to its reject). The material row (49 floats) of a ray's own
 // triangle and the atlas tables are read from global memory, where L1 and
 // L2 serve them.
-#include <mutex>
-
 #include "trace.cuh"
 
 #define FL_FUSED_BLOCK 128
@@ -135,45 +133,6 @@ __device__ __forceinline__ void fl_bounce_commit(fl_carry& c, const fl_hit& h,
     c.alive = c.alive && (new_tri != -1);
     c.tri = new_tri < 0 ? 0 : new_tri;
     c.last_hit = c.ray_origin;
-}
-
-// The persistent grid of a kernel whose blocks stride over their work: as
-// many blocks of `block` threads, with `smem` bytes of dynamic shared
-// memory each, as the card holds at once, and no more than `most` (one
-// block of one thread emulated). Above 48 KB the kernel is first allowed
-// its dynamic shared memory, on the current device. The answer is kept per
-// kernel and device (for the last table size asked there); the grid size
-// only spreads the work, so any size is correct.
-#define FL_GRID_DEVICES 64
-template <typename K>
-static int fl_persistent_grid(K kernel, int block, size_t smem, int most) {
-#ifdef FL_EMULATE
-    (void)kernel;
-    (void)block;
-    (void)smem;
-    (void)most;
-    return 1;
-#else
-    static std::mutex lock;
-    static size_t asked[FL_GRID_DEVICES];  // smem + 1 of the last answer, 0 for none
-    static int resident[FL_GRID_DEVICES];
-    int dev = 0;
-    cudaGetDevice(&dev);
-    std::lock_guard<std::mutex> hold(lock);
-    bool kept = dev >= 0 && dev < FL_GRID_DEVICES;
-    if (!kept || asked[dev] != smem + 1) {
-        int sms = 0, per_sm = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (smem > 48 * 1024)
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
-        int r = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-        if (!kept) return r < most ? r : most;
-        resident[dev] = r;
-        asked[dev] = smem + 1;
-    }
-    return resident[dev] < most ? resident[dev] : most;
-#endif
 }
 
 // bytes of the record table of tp triangles

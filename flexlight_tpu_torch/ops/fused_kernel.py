@@ -3,7 +3,8 @@ plain versions in ops.fused: PRE and POST of scheme="fused_split",
 kernels 4 and 5 of the port, and the whole-frame kernel of
 scheme="fused", kernel 10. POST's launch first runs the live-ray list
 kernel through its own wrapper (`sp_live_list`, part of kernel 5, which
-counts its launches) and then POST over the list."""
+counts its launches) and then POST over the list; the shade kernel
+(ops.shade_kernel) walks the same list of its own state."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from .. import _native
 from .brdf import SQRT3
 from .fused import (FR_C, MAX_TRIS, SP_C, TEX_C, fused_frame_plain, live_list_plain,
                     sp_post_plain, sp_pre_plain)
+from .shade import ST_C
 
 _RNG_MODES = {"hash": 0, "counter": 1}
 
@@ -49,9 +51,12 @@ def _sp_pre_launch(lib, stream, state, dirs, w4, ids, mat, cam, resample: bool, 
 def _sp_live_list_launch(lib, stream, state):
     """(list [N] int32, count [1] int32): the indices of the state's rays
     with m = 1, in runs of ascending order (a warp's), and how many; the
-    entries past the count are not written."""
+    entries past the count are not written. `state` is POST's [SP_C, N]
+    or the shade kernel's [ST_C, N]: both keep m in row SURF, the one row
+    the kernel reads."""
     n = state.shape[1]
-    _native.require(state, "state", torch.float32, (SP_C, n), state.device)
+    rows = ST_C if state.shape[0] == ST_C else SP_C
+    _native.require(state, "state", torch.float32, (rows, n), state.device)
     live = torch.empty(n, dtype=torch.int32, device=state.device)
     count = torch.empty(1, dtype=torch.int32, device=state.device)
     _native.check(lib.fl_sp_live_list(_native.ptr(state), n, _native.ptr(live),

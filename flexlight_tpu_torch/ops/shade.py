@@ -160,6 +160,22 @@ def interp_shade_plain(state, req, ndc, mat, atlas, lights, cam, random_seed, co
     return state, req
 
 
+def alive_list_plain(state):
+    """The alive-list kernel's plain version (part of kernel 12:
+    interp_shade walks the list): m = 0 written for the rays of `state`
+    [ST_C, N] that are not alive; (list [N] int32, count [1] int32), the
+    indices of the alive rays in ascending order, then -1. The kernel
+    writes the same indices in any order of its warps' runs and leaves the
+    entries past the count unset."""
+    n = state.shape[1]
+    alive = state[ALIVE] > 0.0
+    state[SURF].masked_fill_(~alive, 0.0)
+    idx = alive.nonzero().flatten().to(torch.int32)
+    out = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+    out[:idx.shape[0]] = idx
+    return out, torch.tensor([idx.shape[0]], dtype=torch.int32, device=state.device)
+
+
 def _carry_fields(c: BounceCarry) -> list:
     """The carry in state row order, unconverted (copy_ converts)."""
     return [c.alive, c.tri, c.hs, c.hu, c.hv, *c.ray_origin, *c.ray_dir, *c.last_hit_point,

@@ -573,3 +573,62 @@ def test_disc_passes_on_mixed_key_tiles_on_the_card(dev, size, mode):
     for hdr in (True, False):
         got = FK.final_blur(*planes, hdr)
         torch.testing.assert_close(got, FK.final_blur_plain(*planes, hdr), atol=1e-6, rtol=0)
+
+
+# ---- the shading kernels over their live lists (csrc/shade.cu) ---------------
+# test_torch_shade_list's cases on the card (imported by the name pytest
+# collects it under, as above), and its ragged case at 300,007 rays: no
+# multiple of a block, and more rays than the persistent grid has threads
+
+
+@pytest.mark.parametrize("case", ["all_dead", "all_live", "last_only", "alternate", "ragged",
+                                  "stale_m", "killed", "bounce1", "hash", "hash_bounce1",
+                                  "lights256", "ragged_large"])
+@pytest.mark.parametrize("kind", ["shade", "interp_shade"])
+def test_shade_list_walks_on_crafted_live_patterns_on_the_card(dev, kind, case):
+    """Each call against its plain version, every row of both blocks; two
+    launches (their lists' orders may differ) give identical blocks; each
+    launch runs its list kernel once."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS
+    from flexlight_tpu_torch.ops import fused_kernel as SK
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+    from test_torch_fused_record import identical
+    from test_torch_shade_list import CASES, check_case, shade_case
+
+    n = 300_007 if case == "ragged_large" else None
+    args = shade_case(kind, *CASES[case.removesuffix("_large")], n=n, device=dev)
+    kernel = getattr(KERNELS, kind)
+    lists = SK.sp_live_list if kind == "shade" else HK.alive_list
+    before = (lists.launches, kernel.launches)
+    a = check_case(kind, args, kernel)
+    b = kernel(*_clone(args))
+    torch.cuda.synchronize()
+    assert (lists.launches, kernel.launches) == (before[0] + 2, before[1] + 2)
+    for x, y in zip(a, b):
+        assert x.is_cuda and identical(x, y)
+
+
+def test_the_alive_list_on_the_card(dev):
+    """The alive list on alive of every kind: each alive ray listed once,
+    in runs of ascending order, m = 0 written for the others; two launches
+    list the same rays."""
+    from flexlight_tpu_torch.ops import fused as F
+    from flexlight_tpu_torch.ops import shade as S
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+    from test_torch_fused_record import identical
+
+    g = np.random.default_rng(5)
+    state = torch.from_numpy(g.uniform(-1, 1, (S.ST_C, 100_003)).astype(np.float32)).to(dev)
+    state[F.ALIVE] = torch.from_numpy(g.choice(
+        np.array([1.0, 0.0, -0.0, np.nan, 1e-40, 1.0], dtype=np.float32), 100_003)).to(dev)
+    ref_state = state.clone()
+    ref, ref_count = S.alive_list_plain(ref_state)
+    k = int(ref_count)
+    assert k > 0
+    for _ in range(2):
+        st = state.clone()
+        got, count = HK.alive_list(st)
+        torch.cuda.synchronize()
+        assert got.is_cuda and int(count) == k
+        assert torch.equal(got[:k].sort().values, ref[:k])
+        assert identical(st, ref_state)

@@ -26,6 +26,8 @@ It reports:
     time of every kernel the card ran, split into the port's kernels (by
     their CUDA function names) and all other kernels (torch's own);
   * kernels per frame: every kernel the card ran, the port's and torch's;
+  * the device ms of each launch of the port's kernels in the first
+    profiled frame, in launch order (the shading kernels: bounce 0 first);
   * busy share in the profiled run: device ms / wall ms of those profiled
     frames. The profiler slows the host's launches, so this is a lower
     bound of the unprofiled frame's busy share;
@@ -55,9 +57,10 @@ PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
          ("fl_sparse_flags", "sparse tile flags"), ("fl_sparse_key", "sparse nearest2 key"),
          ("fl_sparse_closest", "sparse closest hit"), ("fl_sparse_any", "sparse any hit"),
          ("fl_sp_pre", "PRE (fused)"), ("fl_sp_post", "POST (fused)"),
-         ("fl_sp_live_list", "POST live list (fused)"),
+         ("fl_sp_live_list", "live list (POST, shade)"),
          ("fl_fused_frame", "whole frame (fused)"),
-         ("fl_shade", "shade"), ("fl_interp_shade", "interp_shade"),
+         ("fl_shade", "shade"), ("fl_alive_list", "alive list (interp_shade)"),
+         ("fl_interp_shade", "interp_shade"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
          ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
 OTHER = ("torch ops (shading or texture glue, worklist sort and compaction, temporal, "
@@ -72,15 +75,16 @@ def part_of(kernel_name: str) -> str:
 
 
 def device_kernels(prof):
-    """(name, device us) of every kernel the profiler recorded."""
+    """(name, device us) of every kernel the profiler recorded, in the
+    order they started."""
     from torch.autograd import DeviceType
 
     out = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
-        out.append((ev.name, float(ev.time_range.elapsed_us())))
-    return out
+        out.append((ev.time_range.start, ev.name, float(ev.time_range.elapsed_us())))
+    return [(name, us) for _, name, us in sorted(out, key=lambda e: e[0])]
 
 
 def main() -> int:
@@ -167,9 +171,14 @@ def main() -> int:
     parts = {part: 0.0 for _, part in PARTS}
     parts[OTHER] = 0.0
     counts = dict.fromkeys(parts, 0.0)
+    launches_ms = {part: [] for _, part in PARTS}
     for name, us in kernels:
         parts[part_of(name)] += us / 1000.0 / args.profiled
         counts[part_of(name)] += 1.0 / args.profiled
+        launches_ms.get(part_of(name), []).append(us / 1000.0)
+    # the port's kernels launch by launch in the first profiled frame (the
+    # shading kernels and the lists: bounce 0 first)
+    first_frame = {part: ms[:len(ms) // args.profiled] for part, ms in launches_ms.items() if ms}
     busy = sum(parts.values())
     launches = len(kernels) / args.profiled
     top = sorted(((e.key, e.self_device_time_total / 1000.0 / args.profiled,
@@ -189,6 +198,9 @@ def main() -> int:
           f"{prof_wall_ms:.1f} ms, busy share there {busy / prof_wall_ms:.3f}; "
           f"unprofiled frame {frame_med:.1f} ms, derived idle share "
           f"{1.0 - busy / frame_med:.3f}", flush=True)
+    for part, ms in first_frame.items():
+        print(f"[launches] {part}, device ms of each launch of the first profiled frame: "
+              + ", ".join(f"{x:.4f}" for x in ms), flush=True)
     print("[profile] largest torch ops by the device time of their kernels, ms and calls "
           "per frame: " + "; ".join(f"{n} {ms:.2f} ({c:.0f})" for n, ms, c in top), flush=True)
 
@@ -199,6 +211,7 @@ def main() -> int:
                    "width": args.width, "height": args.height,
                    "frame_ms": frame_ms, "frame_ms_median": frame_med,
                    "device_ms_per_frame": parts, "kernels_per_frame_by_part": counts,
+                   "device_ms_per_launch_first_frame": first_frame,
                    "device_busy_ms": busy,
                    "kernels_per_frame": launches, "profiled_wall_ms": prof_wall_ms,
                    "busy_share_profiled": busy / prof_wall_ms,
