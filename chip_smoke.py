@@ -97,6 +97,25 @@ Phases, one line each (any failure exits non-zero):
      above; one frame's MRT on scheme="fused" must be identical to the
      same frame's on scheme="fused_split" (both through the kernels), and
      the CUDA-event time of both MRT passes is printed.
+  9. the rasterizer, TAA and the simple renderer, through FlexLight(...)
+     and render_frame(): (a) the engine's default renderer, the
+     Rasterizer, with the default Config (FXAA) on theater at 1080p; "auto"
+     must resolve to "kernel", and each frame must launch closest_hit once
+     a layer, any_hit once a light and layer and FXAA once, its frames
+     against the same frames through the plain versions (the golden budget,
+     and identical: the kernels are bit-exact, so one differing value
+     fails, as in (b) and (c)); (b) the
+     Rasterizer on the dragon stand-in at half size (960x540), 2 frames:
+     "auto" must resolve to "sparse" (unsorted casts: the flags once a cast,
+     closest hit once a layer, any hit once a light and layer, the key
+     never), against its plain frames; (c) the PathTracer on theater at
+     1080p with antialiasing="taa", 11 frames so that the 9-frame history
+     wraps, on "fused_split" (PRE 1x, POST 5x, the filter passes, no
+     FXAA), against its plain frames; (d) api="simple" on theater at 1080p,
+     2 frames, finite and not black, no kernel launched (its scan casts are
+     plain PyTorch, as in flexlight_tpu). Each path prints its median frame
+     ms, its device-busy ms a frame (torch.profiler over 2 more frames),
+     its idle share and its peak device memory.
 Then one JSON line per the kernels (PRE: the theater call, with W's
 bound w_bound_ms, the resampling call's resample_ms, resample_plain_ms
 and resample_bound_ms, and the 1024-triangle call's cap_ms,
@@ -114,6 +133,8 @@ traversal kernels' ms and bound_ms are the primary / shadow-0 cast's,
 frame_ms, frame_plain_ms and frame_bound_ms the sums over the theater
 frame's 5 casts and frame_w_bound_ms that of W's full count, and closest
 hit adds t4095_ms, t4095_bound_ms and t4095_w_bound_ms at 4095 triangles;
+the rasterizer's kernels add raster_theater_launches /
+raster_dragon_launches, their counts in phase 9 (a) / (b);
 the disc passes' ms and bound_ms are the theater frame's first call's,
 frame_ms and frame_bound_ms the sums over its calls of that pass), the
 card's name and power limit, and a last line {"ok": true, "device": {...}}.
@@ -367,7 +388,7 @@ def main() -> int:
 
 
 def drive(args, dev, smi: str) -> int:
-    """Phases 2-8 on `dev`."""
+    """Phases 2-9 on `dev`."""
     import numpy as np
     import torch
 
@@ -1439,13 +1460,13 @@ def drive(args, dev, smi: str) -> int:
             frame_ms.append((time.perf_counter() - t) * 1000.0)
         counts = {name: k.launches for name, k in counted}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[{label}] {n_frames} frames, scheme {renderer.resolved_scheme()!r}, "
-              f"shade_kernel {renderer.shade_kernel}: ms per frame "
+        print(f"[{label}] {n_frames} frames, scheme {renderer.metrics.last['scheme']!r}, "
+              f"shade_kernel {getattr(renderer, 'shade_kernel', None)}: ms per frame "
               f"{[round(x, 1) for x in frame_ms]} (median of frames 2..: "
               f"{statistics.median(frame_ms[1:] or frame_ms):.1f} ms); peak device memory "
               f"{peak_gb:.2f} GiB; launches per frame "
               f"{ {n: c / n_frames for n, c in counts.items() if c} }", flush=True)
-        return frames, counts
+        return frames, counts, frame_ms, peak_gb
 
     def expect_launches(label, counts, n_frames, expect):
         """Fail unless each kernel of `expect` ran its count per frame."""
@@ -1487,7 +1508,7 @@ def drive(args, dev, smi: str) -> int:
     print(f"[main] theater {w}x{h}: scheme 'auto' resolves to {scheme!r}", flush=True)
     if scheme != "fused_split":
         fail("the main path must take scheme='fused_split'")
-    frames, launches = drive_frames("main", e.renderer, args.frames)
+    frames, launches = drive_frames("main", e.renderer, args.frames)[:2]
     expect_launches("the main path", launches, args.frames,
                     {"sp_pre": 1, "sp_post": bounces, "sp_live_list": bounces,
                      "alive_list": 0})
@@ -1510,7 +1531,8 @@ def drive(args, dev, smi: str) -> int:
     e = engine(w2, h2)
     e.renderer = "pathtracer"
     e.renderer.scheme = "kernel"
-    frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer, n2)
+    frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer,
+                                           n2)[:2]
     idle = [name for name, c in kernel_launches.items()
             if c == 0 and name not in in_place + sparse_names + ("fused_frame", "sp_live_list",
                                                                  "alive_list")]
@@ -1531,7 +1553,8 @@ def drive(args, dev, smi: str) -> int:
           f"scheme 'auto' resolves to {scheme!r}", flush=True)
     if scheme != "sparse":
         fail("the dragon stand-in must take scheme='sparse'")
-    frames, sparse_launches = drive_frames("sparse-path", e.renderer, args.frames, step=animate)
+    frames, sparse_launches = drive_frames("sparse-path", e.renderer, args.frames,
+                                           step=animate)[:2]
     expect = {"sparse_flags": 2 * bounces, "sparse_key": 2 * bounces - 1,
               "sparse_closest": bounces, "sparse_any": bounces}
     expect_launches("the dragon stand-in", sparse_launches, args.frames, expect)
@@ -1559,7 +1582,7 @@ def drive(args, dev, smi: str) -> int:
     e.renderer = "pathtracer"
     e.renderer.shade_kernel = True
     frames, step_launches = drive_frames("shade-kernel dragon", e.renderer, args.frames,
-                                         step=animate)
+                                         step=animate)[:2]
     expect_launches("the dragon with shade_kernel", step_launches, args.frames,
                     dict(expect, interp_shade=bounces, alive_list=bounces, shade=0,
                          sp_live_list=0))
@@ -1575,7 +1598,7 @@ def drive(args, dev, smi: str) -> int:
     e.renderer = "pathtracer"
     e.renderer.scheme = "kernel"
     e.renderer.shade_kernel = True
-    frames, shade_launches = drive_frames("shade-kernel theater", e.renderer, n2)
+    frames, shade_launches = drive_frames("shade-kernel theater", e.renderer, n2)[:2]
     expect_launches("theater on scheme='kernel' with shade_kernel", shade_launches, n2,
                     {"shade": bounces, "sp_live_list": bounces, "interp_shade": 0,
                      "alive_list": 0, "closest_hit": bounces, "any_hit": bounces})
@@ -1598,7 +1621,8 @@ def drive(args, dev, smi: str) -> int:
     e.renderer.scheme = "fused"
     print(f"[fused-path] wave {w}x{h}: the renderer's scheme is "
           f"{e.renderer.resolved_scheme()!r}", flush=True)
-    frames, fused_launches = drive_frames("fused-path", e.renderer, args.frames, step=animate)
+    frames, fused_launches = drive_frames("fused-path", e.renderer, args.frames,
+                                          step=animate)[:2]
     expect_launches("wave on scheme='fused'", fused_launches, args.frames,
                     {"fused_frame": 1, "sp_pre": 0, "sp_post": 0, "sp_live_list": 0,
                      "closest_hit": 0, "any_hit": 0, "shade": 0, "interp_shade": 0,
@@ -1631,6 +1655,147 @@ def drive(args, dev, smi: str) -> int:
     torch.cuda.empty_cache()
     print(f"[phase] fused path: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 9. the rasterizer, the TAA frame and the simple renderer -------------
+    t0 = time.perf_counter()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
+
+    raster_config = Config()          # the engine's defaults: FXAA, hdr
+    taa_config = config.replace(antialiasing="taa")
+    paths = {}
+
+    def device_busy(label, renderer, frame_ms, peak_gb, step=None, n_profiled=2):
+        """Device ms a frame (torch.profiler: the sum of the device time of
+        every kernel over n_profiled more frames of the renderer's
+        _render_device(), as tools/profile_frame.py takes it) beside the
+        median host ms of the counted frames and their peak memory."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n_profiled):
+                if step is not None:
+                    step(100 + i)
+                renderer._render_device()
+            torch.cuda.synchronize()
+        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA) / 1000.0 / n_profiled
+        if busy <= 0.0:
+            fail(f"{label}: the profiler recorded no device time")
+        med = statistics.median(frame_ms[1:] or frame_ms)
+        paths[label] = {"frame_ms_median": med, "frame_ms": frame_ms, "device_busy_ms": busy,
+                        "idle_share": 1.0 - busy / med, "peak_gib": peak_gb}
+        print(f"[{label}] median frame {med:.1f} ms (frames 2..), device busy {busy:.3f} ms a "
+              f"frame (torch.profiler, {n_profiled} frames), idle share {1.0 - busy / med:.3f}, "
+              f"peak device memory {peak_gb:.2f} GiB", flush=True)
+
+    def expect_identical(label, frames, plain_frames):
+        """The kernels are bit-exact with their plain versions, so each frame
+        must equal its plain frame value for value, beside the golden
+        budget that check_frames holds it to."""
+        count = sum(int((torch.from_numpy(a) != b).sum()) for a, b in zip(frames, plain_frames))
+        print(f"[{label}] kernels vs plain frames: tolerance: identical; {count} values differ "
+              f"-> {'ok' if count == 0 else 'FAIL'}", flush=True)
+        if count:
+            fail(f"{label}: {count} values differ from the plain frames")
+
+    # (a) the rasterizer with its defaults on theater at full size
+    e = engine(w, h)
+    e.config = raster_config
+    raster = e.renderer
+    if not isinstance(raster, Rasterizer):
+        fail(f"the engine's default renderer is {type(raster).__name__}, not the Rasterizer")
+    scheme, layers = raster.resolved_scheme(), raster.resolved_layers()
+    n_lights = raster._buffers.lights.shape[0]
+    print(f"[raster] theater {w}x{h}: the default renderer {type(raster).__name__}, scheme "
+          f"'auto' resolves to {scheme!r}, {layers} layers, {n_lights} lights", flush=True)
+    if scheme != "kernel":
+        fail("the rasterizer on theater must take scheme='kernel'")
+    plain = Rasterizer(w, h, e.scene, e.camera, raster_config, dev, kernels=PLAIN)
+    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(args.frames)]
+    del plain
+    frames, raster_launches, frame_ms, peak = drive_frames("raster", raster, args.frames)
+    expect_launches("the rasterizer on theater", raster_launches, args.frames,
+                    {"closest_hit": layers, "any_hit": layers * n_lights, "fxaa": 1,
+                     "sparse_flags": 0, "sparse_key": 0, "sparse_closest": 0,
+                     "sparse_any": 0, "sp_pre": 0, "sp_post": 0})
+    check_frames("raster", frames, plain_frames, (h, w, 3))
+    expect_identical("raster", frames, plain_frames)
+    device_busy("rasterizer-theater-1080p", raster, frame_ms, peak)
+    del frames, plain_frames, e, raster
+    torch.cuda.empty_cache()
+
+    # (b) the rasterizer on the dragon stand-in (sparse, glass: 4 layers)
+    w2, h2, n2 = w // 2, h // 2, 2
+    e, animate = dragon_engine(w2, h2)
+    e.config = raster_config
+    e.renderer = "rasterizer"
+    raster = e.renderer
+    scheme, layers = raster.resolved_scheme(), raster.resolved_layers()
+    n_lights = raster._buffers.lights.shape[0]
+    print(f"[raster-sparse] dragon stand-in {w2}x{h2}: scheme 'auto' resolves to {scheme!r}, "
+          f"{layers} layers, {n_lights} lights", flush=True)
+    if scheme != "sparse":
+        fail("the rasterizer on the dragon stand-in must take scheme='sparse'")
+    frames, raster_sparse_launches, frame_ms, peak = drive_frames(
+        "raster-sparse", raster, n2, step=animate)
+    expect_launches("the rasterizer on the dragon stand-in", raster_sparse_launches, n2,
+                    {"sparse_flags": layers * (1 + n_lights), "sparse_closest": layers,
+                     "sparse_any": layers * n_lights, "sparse_key": 0, "fxaa": 1,
+                     "closest_hit": 0, "any_hit": 0})
+    device_busy("rasterizer-dragon-540p", raster, frame_ms, peak, step=animate)
+    de, step = dragon_engine(w2, h2)
+    plain = Rasterizer(w2, h2, de.scene, de.camera, raster_config, dev, kernels=PLAIN)
+    plain_frames = []
+    for i in range(n2):
+        step(i)
+        plain_frames.append(torch.from_numpy(plain.render_frame()))
+    check_frames("raster-sparse", frames, plain_frames, (h2, w2, 3))
+    expect_identical("raster-sparse", frames, plain_frames)
+    del frames, plain_frames, e, de, raster, plain
+    torch.cuda.empty_cache()
+
+    # (c) the path tracer with TAA on theater: 11 frames, so the ring wraps
+    n_taa = 11
+    e = engine(w, h)
+    plain = PathTracer(w, h, e.scene, e.camera, taa_config, dev, kernels=PLAIN)
+    plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(n_taa)]
+    del plain
+    torch.cuda.empty_cache()
+    e = engine(w, h)
+    e.config = taa_config
+    e.renderer = "pathtracer"
+    if e.renderer.resolved_scheme() != "fused_split":
+        fail("the TAA frame on theater must take scheme='fused_split'")
+    frames, taa_launches, frame_ms, peak = drive_frames("taa", e.renderer, n_taa)
+    expect_launches("the TAA frame", taa_launches, n_taa,
+                    {"sp_pre": 1, "sp_post": bounces, "sp_live_list": bounces, "first_blur": 3,
+                     "second_blur": 3, "final_blur": 1, "fxaa": 0})
+    check_frames("taa", frames, plain_frames, (h, w, 3))
+    expect_identical("taa", frames, plain_frames)
+    device_busy("theater-1080p-taa", e.renderer, frame_ms, peak)
+    del frames, plain_frames, e
+    torch.cuda.empty_cache()
+
+    # (d) api="simple": the scan casts, plain in both packages, no kernel
+    e = engine(w, h)
+    e.api = "simple"
+    frames, simple_launches, frame_ms, peak = drive_frames("simple", e.renderer, n2)
+    expect_launches("the simple renderer", simple_launches, n2,
+                    {name: 0 for name, _ in counted})
+    last = frames[-1]
+    if last.shape != (h, w, 3) or not np.isfinite(last).all() or float(last.max()) <= 0.0:
+        fail(f"simple renderer: frame {last.shape}, finite {np.isfinite(last).all()}, "
+             f"max {float(last.max())}")
+    print(f"[simple] {type(e.renderer).__name__}: output {list(last.shape)}, mean "
+          f"{float(last.mean()):.4f}, finite, not black", flush=True)
+    device_busy("simple-theater-1080p", e.renderer, frame_ms, peak)
+    del frames, e
+    torch.cuda.empty_cache()
+    print(f"[paths] {json.dumps(paths)}", flush=True)
+    print(f"[phase] rasterizer, TAA and simple paths: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
     if loaded:
@@ -1647,9 +1812,13 @@ def drive(args, dev, smi: str) -> int:
     launches["fused_frame"] = fused_launches["fused_frame"]
     kernels = []
     for name, k in counted:
+        # the rasterizer's launches (phase 9) beside the count of each row's own path
+        raster = {f"raster_{tag}_launches": c[name] for tag, c in
+                  (("theater", raster_launches), ("dragon", raster_sparse_launches))
+                  if c[name]}
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
-                        **results[name]})
+                        **results[name], **raster})
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

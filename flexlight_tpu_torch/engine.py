@@ -14,9 +14,10 @@ from .scene.scene import Scene
 
 class FlexLight:
     """`FlexLight(canvas, device=...)`: `canvas` is a (width, height) tuple
-    or None (512 x 512); `renderer = "pathtracer"` builds the port's
-    PathTracer on `device`. The other renderers are not ported yet
-    (ROADMAP.md)."""
+    or None (512 x 512). The renderer, built on `device`, is the Rasterizer
+    by default (flexlight.js:34); `renderer = "pathtracer"` gives the
+    PathTracer, and `api = "simple"` or "webgpu" the SimplePathTracer for
+    either name (flexlight_tpu/engine.py:125-139)."""
 
     def __init__(self, canvas=None, *, device):
         self.device = torch.device(device)
@@ -124,13 +125,18 @@ class FlexLight:
         self._renderer = self._make_renderer(name)
 
     def _make_renderer(self, name: str):
-        if self._api in ("webgpu", "simple") or name == "rasterizer":
-            raise NotImplementedError(
-                f"renderer {name!r} on api {self._api!r} is not ported yet (ROADMAP.md)")
-        if name != "pathtracer":
-            raise ValueError(f"Renderer option {name!r} on api {self._api!r} doesn't exist.")
         from .models.pathtracer import PathTracer
+        from .models.rasterizer import Rasterizer
+        from .models.simple import SimplePathTracer
 
         width, height = self._canvas
-        return PathTracer(width, height, self._scene, self._camera, self._config,
-                          self.device)
+        args = (width, height, self._scene, self._camera, self._config, self.device)
+        # the 'webgpu' api maps both renderer names to the simple pipeline
+        # (flexlight.js:115-123: rasterizer + webgpu -> PathTracerWGPU)
+        if self._api in ("webgpu", "simple"):
+            return SimplePathTracer(*args)
+        if name == "pathtracer":
+            return PathTracer(*args)
+        if name == "rasterizer":
+            return Rasterizer(*args)
+        raise ValueError(f"Renderer option {name!r} on api {self._api!r} doesn't exist.")

@@ -12,7 +12,10 @@ A frame launches the traversal kernels (scheme="kernel"), the fused
 PRE / POST kernels (scheme="fused_split"), the whole-frame kernel
 (scheme="fused", never picked by "auto") or the worklist kernels of large
 scenes (scheme="sparse": tile flags, nearest2 sort key, closest hit, any
-hit), and the filter and FXAA kernels either way. With the renderer's
+hit), and the filter and FXAA kernels either way; scheme="scan" and
+"packet", flexlight_tpu's own casts in plain XLA, cast in plain PyTorch
+(ops.traverse). TAA (antialiasing="taa", post.taa) is plain PyTorch, as
+in flexlight_tpu. With the renderer's
 `shade_kernel` switch on (off by default, as in flexlight_tpu), the
 kernel and sparse schemes shade each bounce in one kernel: interp_shade
 on scenes without textures (1x1 atlases), else shade.
@@ -20,14 +23,12 @@ on scenes without textures (1x1 atlases), else shade.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.buffers import build_scene_buffers
 from ..ops.fused import fused_split_eligible
 from ..ops.fused_kernel import fused_frame, sp_post, sp_pre
 from ..ops.intersect_kernel import any_hit, closest_hit
@@ -40,8 +41,10 @@ from ..post.filter_kernel import (final_blur, final_filter_packed, first_blur,
                                   first_filter_packed, pack_rgba8, second_blur,
                                   second_filter_packed, tileize_blur_key_packed)
 from ..post.fxaa_kernel import fxaa_cuda
+from ..post.taa import Jitter, TAAState, taa_apply, taa_history
 from ..post.temporal import TemporalState, push_frame, temporal_average
-from ..utils.metrics import FrameMetrics, frame_record
+from ..utils.debug import assert_finite
+from .base import Renderer
 
 
 class KernelSet(NamedTuple):
@@ -129,14 +132,12 @@ def _filter_chain_packed(config: Config, r0, ip0, oc0, id0, oid,
                                blur=kernels.final_blur)
 
 
-def postprocess_mrt(mrt, temporal_state: TemporalState, width: int, height: int,
-                    config: Config, kernels: KernelSet = KERNELS):
+def postprocess_mrt(mrt, temporal_state: TemporalState, taa_state: TAAState | None,
+                    width: int, height: int, config: Config, kernels: KernelSet = KERNELS):
     """temporal -> denoise -> AA. Returns (display rgb [H,W,3] in [0,1],
-    temporal state)."""
-    if config.antialiasing == "taa":
-        raise NotImplementedError("antialiasing='taa' is not ported yet (ROADMAP.md)")
+    temporal state, TAA state; None unless antialiasing="taa")."""
     color, alpha, color_q, ip_q, id_q, oid_q, ocolor_q = _quantized_mrt(mrt, height, width)
-    use_aa = config.antialiasing == "fxaa"
+    use_aa = config.antialiasing in ("fxaa", "taa")
     if config.temporal:
         # randomSeed-synced accumulation ring (pathtracerWGL2.js:389-401)
         temporal_state = push_frame(temporal_state, color_q, ip_q, id_q, oid_q)
@@ -159,75 +160,51 @@ def postprocess_mrt(mrt, temporal_state: TemporalState, width: int, height: int,
     if use_aa:
         aa_in = torch.cat([quantize_rgba8(display),
                            (alpha > 0).to(torch.float32)[..., None]], dim=-1)
-        display = kernels.fxaa(aa_in)[..., 0:3]
-    return torch.clamp(display, 0.0, 1.0), temporal_state
+        if config.antialiasing == "fxaa":
+            display = kernels.fxaa(aa_in)[..., 0:3]
+        else:
+            out, taa_state = taa_apply(taa_state, aa_in)
+            display = out[..., 0:3]
+    return torch.clamp(display, 0.0, 1.0), temporal_state, taa_state
 
 
 def frame_pipeline(buffers, cam_pos, view, random_seed, temporal_state: TemporalState,
-                   width: int, height: int, config: Config,
+                   taa_state: TAAState | None, width: int, height: int, config: Config,
                    kernels: KernelSet = KERNELS, scheme: str = "kernel",
-                   shade_kernel: bool = False):
-    """One full frame: MRT path-trace pass + post."""
+                   shade_kernel: bool = False, tile: int = 1024):
+    """One full frame: MRT path-trace pass + post. Returns (display,
+    temporal state, TAA state)."""
     mrt = render_mrt(buffers, width, height, cam_pos, view, config, random_seed,
-                     scheme=scheme, kernels=kernels, shade_kernel=shade_kernel)
-    return postprocess_mrt(mrt, temporal_state, width, height, config, kernels)
+                     scheme=scheme, kernels=kernels, shade_kernel=shade_kernel, tile=tile)
+    return postprocess_mrt(mrt, temporal_state, taa_state, width, height, config, kernels)
 
 
-class PathTracer:
-    """The renderer object with the reference's surface (render / halt /
+class PathTracer(Renderer):
+    """The path tracer with the reference's surface (render / halt /
     updateScene / updatePrimaryLightSources / fps / fpsLimit), on one
     explicit torch device. `shade_kernel` (an attribute too) shades the
     bounces of the kernel and sparse schemes in the kernels of ops.shade;
-    a frame raises where they cannot serve (render_mrt)."""
+    a frame raises where they cannot serve (render_mrt). `tile` is the
+    packet of scheme="packet"."""
 
     type = "pathtracer"
     # from this many triangles on, "auto" takes the sparse worklist casts
     # (flexlight_tpu/models/pathtracer.py:342)
     SPARSE_MIN_TRIS = 4096
+    SCHEMES = ("kernel", "fused_split", "fused", "sparse", "scan", "packet")
 
     def __init__(self, width, height, scene, camera, config, device,
                  scheme: str = "auto", kernels: KernelSet = KERNELS,
-                 shade_kernel: bool = False):
-        self.scene = scene
-        self.camera = camera
-        self.config = config
-        self.device = torch.device(device)
-        self.canvas_width = int(width)
-        self.canvas_height = int(height)
+                 shade_kernel: bool = False, tile: int = 1024):
+        super().__init__(width, height, scene, camera, config, device)
         self.scheme = scheme
         self.kernels = kernels
         self.shade_kernel = shade_kernel
-        self.fps = 0.0
-        self.fps_limit = float("inf")
-        self.freeze = False
-        self.metrics = FrameMetrics()
-        self._halt = True
-        self._last_frame = None
-        self._last_frame_time = None
-        self._buffers = None
+        self.tile = tile
         self._temporal_state = None
-        self._frame_count = 0
-        self._fps_window_start = time.perf_counter()
-        self._fps_frames = 0
+        self._taa_state = None
+        self._jitter = Jitter()
         self._prepared_shape = None
-        self._transform_registry = None
-        self._transform_version = None
-
-    # size derived from renderQuality (pathtracerWGL2.js:809-812)
-    @property
-    def width(self) -> int:
-        return max(int(self.canvas_width * self.config.render_quality), 1)
-
-    @property
-    def height(self) -> int:
-        return max(int(self.canvas_height * self.config.render_quality), 1)
-
-    def halt(self):
-        self._halt = True
-
-    def update_scene(self):
-        self._buffers = build_scene_buffers(self.scene, self.device)
-        self._transform_registry = None
 
     def resolved_scheme(self) -> str:
         """The scheme a frame runs. "auto" takes flexlight_tpu's rule on a
@@ -235,55 +212,18 @@ class PathTracer:
         SPARSE_MIN_TRIS triangles "fused_split" for scenes within its caps
         (<= 1024 triangles, <= 256 lights), else "kernel"; "sparse" from
         SPARSE_MIN_TRIS on. As in flexlight_tpu, "auto" never picks
-        "fused": a caller asks for it."""
+        "fused", "scan" or "packet": a caller asks for them. "mxu" and
+        "clustered" are not ported and raise."""
         if self.scheme == "auto":
             if self._buffers is None:
                 self.update_scene()
             if self._buffers.id_buffer.shape[0] >= self.SPARSE_MIN_TRIS:
                 return "sparse"
             return "fused_split" if fused_split_eligible(self._buffers) else "kernel"
-        if self.scheme in ("kernel", "fused_split", "fused", "sparse"):
+        if self.scheme in self.SCHEMES:
             return self.scheme
         raise NotImplementedError(
             f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 1)")
-
-    def update_primary_light_sources(self):
-        if self._buffers is None:
-            self.update_scene()
-            return
-        self._buffers = self._buffers._replace(
-            lights=torch.as_tensor(self.scene.build_light_array(), device=self.device),
-            ambient=torch.as_tensor(np.asarray(self.scene.ambient_light, dtype=np.float32),
-                                    device=self.device))
-
-    def _refresh_transforms(self):
-        """Per-frame transform upload (pathtracerWGL2.js:361-363), skipped
-        when nothing moved. The key holds the registry object itself, so a
-        registry made after reset_global_registry() never matches a stale
-        key by a reused address."""
-        from ..scene.transform import global_registry
-
-        reg = global_registry()
-        if self._transform_registry is reg and self._transform_version == reg.version:
-            return
-        self._transform_registry = reg
-        self._transform_version = reg.version
-        rot, shift = reg.build_arrays()
-        self._buffers = self._buffers._replace(
-            rotations=torch.as_tensor(rot, device=self.device),
-            shifts=torch.as_tensor(shift, device=self.device))
-
-    # camelCase aliases (reference API)
-    updateScene = update_scene
-    updatePrimaryLightSources = update_primary_light_sources
-
-    @property
-    def fpsLimit(self):
-        return self.fps_limit
-
-    @fpsLimit.setter
-    def fpsLimit(self, value):
-        self.fps_limit = value
 
     def render(self):
         """Prepare buffers and state; frames then come from render_frame()."""
@@ -297,12 +237,10 @@ class PathTracer:
         if self._prepared_shape != shape:
             self._temporal_state = TemporalState.create(
                 self.config.temporal_samples, self.height, self.width, self.device)
+            self._taa_state = taa_history(self.config.antialiasing, self.height,
+                                          self.width, self.device)
             self._frame_count = 0
             self._prepared_shape = shape
-
-    def render_frame(self) -> np.ndarray:
-        """Render one frame; returns [H, W, 3] float32 in [0, 1]."""
-        return self._render_fetch(as_u8=False)
 
     def render_frame_u8(self) -> np.ndarray:
         """Like render_frame, quantized to uint8 on the device (the
@@ -310,41 +248,25 @@ class PathTracer:
         return self._render_fetch(as_u8=True)
 
     def _render_device(self) -> torch.Tensor:
-        """Render one frame and return it on the device, [H, W, 3] f32."""
         scheme = self.resolved_scheme()
         if self._halt:
             self.render()
-        if self.fps_limit != float("inf") and self._last_frame_time is not None:
-            wait = 1.0 / self.fps_limit - (time.perf_counter() - self._last_frame_time)
-            if wait > 0:
-                time.sleep(wait)
+        self._throttle()
         self._prepare()
         self._refresh_transforms()
-        view = self.camera.view_matrix(self.width, self.height)
+        jitter = (0.0, 0.0)
+        if self.config.antialiasing == "taa":
+            jitter = self._jitter.next(self.width, self.height)
+        view = self.camera.view_matrix(self.width, self.height, jitter)
         temporal_frame = self._frame_count % self.config.temporal_samples
         random_seed = float(temporal_frame) if self.config.temporal else 0.0
-        display, self._temporal_state = frame_pipeline(
+        display, self._temporal_state, self._taa_state = frame_pipeline(
             self._buffers, self.camera.position, view, random_seed,
-            self._temporal_state, self.width, self.height, self.config,
-            self.kernels, scheme=scheme, shade_kernel=self.shade_kernel)
+            self._temporal_state, self._taa_state, self.width, self.height, self.config,
+            self.kernels, scheme=scheme, shade_kernel=self.shade_kernel, tile=self.tile)
         self._frame_count += 1
+        assert_finite((display, self._temporal_state, self._taa_state), "pathtracer.frame")
         return display
 
-    def _render_fetch(self, as_u8: bool) -> np.ndarray:
-        if self.freeze and self._last_frame is not None:
-            return self._last_frame
-        frame_t0 = time.perf_counter()
-        display = self._render_device()
-        if as_u8:
-            display = torch.round(torch.clamp(display, 0.0, 1.0) * 255.0).to(torch.uint8)
-        self._last_frame = display.cpu().numpy()
-        self._fps_frames += 1
-        now = time.perf_counter()
-        self._last_frame_time = now
-        elapsed = now - self._fps_window_start
-        if elapsed > 0.5:  # 500 ms window (pathtracerWGL2.js:293-298)
-            self.fps = self._fps_frames / elapsed
-            self._fps_window_start = now
-            self._fps_frames = 0
-        frame_record(self, (now - frame_t0) * 1000.0, scheme=self.resolved_scheme())
-        return self._last_frame
+    def _frame_extra(self) -> dict:
+        return {"scheme": self.resolved_scheme()}

@@ -200,3 +200,13 @@ def buffers_from_numpy(arrays, device) -> SceneBuffers:
         else:
             fields[name] = t(val)
     return SceneBuffers(**fields)
+
+
+def taa_state_from_numpy(state, device):
+    """post.taa.TAAState from another implementation's TAA state with its
+    `history` as a numpy array (e.g. flexlight_tpu's mapped through
+    np.asarray), so that both go on from the same history."""
+    from ..post.taa import TAAState
+
+    return TAAState(history=torch.as_tensor(np.array(state.history, dtype=np.float32),
+                                            device=device))

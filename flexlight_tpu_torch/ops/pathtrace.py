@@ -11,7 +11,8 @@ bounce_pre -> bounce_tex -> bounce_shade -> bounce_apply -> bounce_commit
 (composed by bounce_post). scheme="kernel" runs it as plain tensor code
 with the traversals in the closest-hit / any-hit kernels of
 ops.intersect_kernel, scheme="sparse" the same around the worklist casts
-of ops.intersect_sparse (large scenes); scheme="fused_split" (ops.fused)
+of ops.intersect_sparse (large scenes), scheme="scan" / "packet" the same
+around the plain casts of ops.traverse; scheme="fused_split" (ops.fused)
 runs everything but bounce_tex in two fused kernels whose plain versions
 are built from the same stages, and scheme="fused" the whole frame in
 one kernel whose plain version is the fused_split frame. On the kernel
@@ -545,10 +546,28 @@ def block_untile(x, rows: int, width: int, bh: int, bw: int):
     return x.transpose(1, 2).reshape(rows * width, *lead)
 
 
-def _casts(scheme: str, buffers: SceneBuffers, world_geom, kernels):
+def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: int = 1024):
     """The scheme's cast closures (traverse_soa, shadow_soa). Both take
     `bounce=True` on the casts of the bounce loop; the sparse scheme sorts
-    those wavefronts (its hinted casts) and reports drawable indices."""
+    those wavefronts (its hinted casts) and reports drawable indices. The
+    scan and packet casts (ops.traverse, packets of `tile` rays) test dead
+    rays too, as flexlight_tpu's do: the bounce loop masks their hits."""
+    if scheme in ("scan", "packet"):
+        from . import traverse as trv
+
+        def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):
+            o, d = torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
+            hit = (trv.traverse_scan(world_geom, o, d, edge=edge) if scheme == "scan" else
+                   trv.traverse_coherent(world_geom, o, d, tile=tile, edge=edge))
+            return hit.suv[:, 0], hit.suv[:, 1], hit.suv[:, 2], hit.triangle
+
+        def shadow_soa(o3, d3, max_len, alive=None, bounce=False):
+            o, d = torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
+            if scheme == "scan":
+                return trv.shadow_scan(world_geom, o, d, max_len)
+            return trv.shadow_coherent(world_geom, o, d, max_len, tile=tile)
+
+        return traverse_soa, shadow_soa
     if scheme == "sparse":
         from . import intersect_sparse as isp
 
@@ -587,7 +606,7 @@ def _casts(scheme: str, buffers: SceneBuffers, world_geom, kernels):
 
 def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "kernel",
-               kernels=None, shade_kernel: bool = False) -> MRT:
+               kernels=None, shade_kernel: bool = False, tile: int = 1024) -> MRT:
     """Full primary + bounce render to the MRT contract (glsl:601-646).
     Returns flat [N = H*W] per-pixel outputs.
 
@@ -606,7 +625,10 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     kernel of ops.fused (`kernels.fused_frame`), on scenes within
     ops.fused.fused_eligible, identical to "fused_split". `kernels` may be
     any object with those attributes, such as models.pathtracer.PLAIN.
-    The other schemes of flexlight_tpu are listed in ROADMAP.md.
+    scheme="scan" and "packet" (flexlight_tpu's default and its packet
+    casts, plain XLA there) run the same loop around ops.traverse's
+    plain casts, the packets `tile` consecutive rays (N a multiple of
+    tile). "mxu" and "clustered" are not ported (ROADMAP.md).
 
     `shade_kernel=True` (kernel and sparse schemes) runs each bounce's
     shading in a kernel of ops.shade, routed as flexlight_tpu routes
@@ -625,10 +647,13 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
             fused.render_mrt_fused
         return render(buffers, width, height, camera_pos, view_matrix, config, random_seed,
                       kernels=kernels)
-    if scheme not in ("kernel", "sparse"):
+    if scheme not in ("kernel", "sparse", "scan", "packet"):
         raise NotImplementedError(
-            f"scheme={scheme!r} is not ported (ROADMAP.md, Queue 1); the port renders "
-            "with scheme='kernel', 'sparse', 'fused_split' or 'fused'")
+            f"scheme={scheme!r} is not ported (ROADMAP.md); the port renders with "
+            "scheme='kernel', 'sparse', 'fused_split', 'fused', 'scan' or 'packet'")
+    if shade_kernel and scheme not in ("kernel", "sparse"):
+        raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
+                         f"'sparse', not of scheme={scheme!r}")
     bounce_post_impl = bounce_step_impl = None
     if shade_kernel:
         from . import shade
@@ -648,7 +673,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     inv_view = inverse_view(view_matrix).to(dev)
     random_seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
     world_geom = world_geometry(buffers)
-    traverse_soa, shadow_soa = _casts(scheme, buffers, world_geom, kernels)
+    traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 
     origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view)
     mat = build_material_table(buffers, world_geom)

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each kernel wrapper on CUDA tensors
 against its plain version on the same tensors, and a small theater frame
 (and a small dragon stand-in frame, scheme="sparse", and a small wave
-frame, scheme="fused") through all of them.
+frame, scheme="fused") through all of them; a small rasterizer frame on
+the dense and the worklist casts.
 Marked `gpu`; without a CUDA device these tests skip.
 Run on a machine with a card:
 
@@ -98,6 +99,27 @@ def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
     assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_imgs[scheme])
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+
+
+@pytest.mark.parametrize("scheme", ["kernel", "sparse"])
+def test_rasterizer_frame_through_the_kernels_is_the_plain_frame(frame, dev, scheme):
+    """A small rasterizer frame (theater, 4 translucent layers, FXAA) on
+    the dense and on the worklist casts: identical to its plain frame."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
+
+    _, _, e, _ = frame
+    plain = Rasterizer(96, 64, e.scene, e.camera, Config(), dev, scheme=scheme,
+                       kernels=PLAIN).render_frame()
+    counts = [k.launches for k in KERNELS]
+    r = Rasterizer(96, 64, e.scene, e.camera, Config(), dev, scheme=scheme)
+    img = r.render_frame()
+    ran = {n for n, k, c in zip(KernelSet._fields, KERNELS, counts) if k.launches > c}
+    casts = {"closest_hit", "any_hit"} if scheme == "kernel" else \
+        {"sparse_flags", "sparse_closest", "sparse_any"}
+    assert ran == casts | {"fxaa"} and r.resolved_layers() == 4
+    assert np.isfinite(img).all() and img.max() > 0
+    np.testing.assert_array_equal(img, plain)
 
 
 SPARSE = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")

@@ -25,8 +25,10 @@ def _run(code):
 
 def test_port_and_a_cpu_frame_never_import_jax():
     """Importing the port and rendering a CPU frame on the fused_split,
-    kernel and fused schemes loads no module of jax and none of
-    flexlight_tpu: the port keeps its own copy of what it uses."""
+    kernel and fused schemes, a TAA frame, a frame of the default renderer
+    (the rasterizer) and one of the simple renderer loads no module of jax
+    and none of flexlight_tpu: the port keeps its own copy of what it
+    uses."""
     code = """
 import sys
 import flexlight_tpu_torch as port
@@ -47,6 +49,14 @@ w, animate = wave(device="cpu")
 animate(0)
 pt = PathTracer(16, 12, w.scene, w.camera, e.config, "cpu", scheme="fused")
 assert pt.render_frame().shape == (12, 16, 3) and pt.metrics.last["scheme"] == "fused"
+e.config = e.config.replace(antialiasing="taa")
+e.renderer = "rasterizer"
+assert e.renderer.render_frame().shape == (12, 16, 3)
+assert e.renderer.metrics.last["scheme"] == "kernel" and e.renderer.metrics.last["layers"] == 4
+e.renderer = "pathtracer"
+assert e.renderer.render_frame().shape == (12, 16, 3)
+e.api = "simple"
+assert type(e.renderer).__name__ == "SimplePathTracer" and e.renderer.render_frame().shape == (12, 16, 3)
 print("jax" in sys.modules, any(m.startswith("jax.") or m.startswith("jaxlib") for m in sys.modules),
       sorted(m for m in sys.modules if m == "flexlight_tpu" or m.startswith("flexlight_tpu.")))
 """
@@ -121,21 +131,25 @@ def _engine(device="cpu"):
 
 
 def test_unported_surface_raises():
+    """What stays unported raises: the mxu and clustered casts, on both
+    renderers that take a scheme. The rasterizer and TAA render."""
     import flexlight_tpu_torch as port
     from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
 
     with pytest.raises(TypeError):
         port.FlexLight((8, 8))  # the device is an explicit argument
     e = _engine()
-    with pytest.raises(NotImplementedError):
-        e.renderer = "rasterizer"
-    e.renderer = "pathtracer"
     e.config = e.config.replace(antialiasing="taa")
-    with pytest.raises(NotImplementedError, match="taa"):
-        e.renderer.render_frame()
-    pt = PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_frame()
+    assert isinstance(e.renderer, Rasterizer)
+    assert e.renderer.render_frame().shape == (8, 8, 3)
+    e.renderer = "pathtracer"
+    assert e.renderer.render_frame().shape == (8, 8, 3)
+    for scheme in ("mxu", "clustered"):
+        for cls in (PathTracer, Rasterizer):
+            r = cls(8, 8, e.scene, e.camera, Config(), "cpu", scheme=scheme)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                r.render_frame()
 
 
 def test_transform_cache_survives_a_registry_reset():
@@ -188,6 +202,7 @@ def test_the_port_reads_no_flexlight_environment_variable(monkeypatch):
 
     import flexlight_tpu_torch as port
     from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
     from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater, wave
 
     named = []
@@ -224,9 +239,11 @@ def test_the_port_reads_no_flexlight_environment_variable(monkeypatch):
     e = theater(stand_in_wood_texture(0), device="cpu")
     cfg = Config(temporal=False, filter=False, antialiasing=None, max_reflections=2)
     for scheme, switch in (("auto", False), ("kernel", False), ("kernel", True),
-                           ("sparse", False), ("sparse", True)):
+                           ("sparse", False), ("sparse", True), ("scan", False)):
         PathTracer(8, 8, e.scene, e.camera, cfg, "cpu", scheme=scheme,
                    shade_kernel=switch).render_frame()
+    for scheme in ("kernel", "sparse"):
+        Rasterizer(8, 8, e.scene, e.camera, cfg, "cpu", scheme=scheme).render_frame()
     # scheme="fused" serves small atlases only: wave
     w, _ = wave(device="cpu")
     PathTracer(8, 8, w.scene, w.camera, cfg, "cpu", scheme="fused").render_frame()

@@ -1,8 +1,9 @@
 """Where the time of one of the port's frames goes, on one CUDA card.
 
     python3 tools/profile_frame.py [--scene theater|dragon|wave]
-                                   [--scheme auto|fused_split|fused|kernel|sparse]
-                                   [--shade-kernel]
+                                   [--renderer pathtracer|rasterizer|simple]
+                                   [--scheme auto|fused_split|fused|kernel|sparse|scan|packet]
+                                   [--antialiasing fxaa|taa] [--shade-kernel]
                                    [--device cuda:0] [--seed 0] [--timed 8] [--profiled 3]
                                    [--width 1920] [--height 1080]
                                    [--out build/profile_frame_<scene>_<scheme>[_shade].json]
@@ -16,13 +17,17 @@ files written under build/objects/; 44,890 triangles, "auto" resolves to
 or wave (50 triangles, 1x1 textures: "auto" resolves to "fused_split",
 and it is eligible for "fused"; its pillars move before every frame).
 --shade-kernel turns the renderer's shade_kernel switch on (kernel and
-sparse schemes: the shading kernels of ops.shade).
+sparse schemes: the shading kernels of ops.shade). --renderer rasterizer
+renders with the Rasterizer and the default Config instead ("auto":
+"kernel" below 4096 triangles, "sparse" from there), --renderer simple
+with the SimplePathTracer (scan casts); --antialiasing taa takes TAA in
+place of FXAA.
 It reports:
 
   * frame ms: host wall time of render_frame() (which returns the frame on
     the host), median of --timed frames after two warm-up frames;
   * device ms per frame, by part: torch.profiler over --profiled frames of
-    PathTracer._render_device() plus a synchronize; the sum of the device
+    the renderer's _render_device() plus a synchronize; the sum of the device
     time of every kernel the card ran, split into the port's kernels (by
     their CUDA function names) and all other kernels (torch's own);
   * kernels per frame: every kernel the card ran, the port's and torch's;
@@ -90,8 +95,12 @@ def device_kernels(prof):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="theater", choices=("theater", "dragon", "wave"))
+    ap.add_argument("--renderer", default="pathtracer",
+                    choices=("pathtracer", "rasterizer", "simple"))
     ap.add_argument("--scheme", default="auto",
-                    choices=("auto", "fused_split", "fused", "kernel", "sparse"))
+                    choices=("auto", "fused_split", "fused", "kernel", "sparse", "scan",
+                             "packet"))
+    ap.add_argument("--antialiasing", default="fxaa", choices=("fxaa", "taa"))
     ap.add_argument("--shade-kernel", action="store_true")
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
@@ -101,9 +110,9 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    tag = "_shade" if args.shade_kernel else ""
-    out = args.out or os.path.join(ROOT, "build",
-                                   f"profile_frame_{args.scene}_{args.scheme}{tag}.json")
+    tag = ("_shade" if args.shade_kernel else "") + ("_taa" if args.antialiasing == "taa" else "")
+    out = args.out or os.path.join(
+        ROOT, "build", f"profile_frame_{args.renderer}_{args.scene}_{args.scheme}{tag}.json")
 
     import torch
     from torch.autograd import DeviceType
@@ -116,6 +125,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from flexlight_tpu_torch import Config, reset_global_registry
     from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
+    from flexlight_tpu_torch.models.simple import SimplePathTracer
     from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
 
     smi = subprocess.run(
@@ -124,7 +135,7 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(dev)} | {smi}", flush=True)
 
     config = Config(temporal=True, temporal_samples=4, filter=True,
-                    antialiasing="fxaa", samples_per_ray=1, max_reflections=5)
+                    antialiasing=args.antialiasing, samples_per_ray=1, max_reflections=5)
     reset_global_registry()
     if args.scene == "dragon":
         e, animate = dragon(args.seed, os.path.join(ROOT, "build", "objects"), device=dev)
@@ -132,9 +143,15 @@ def main() -> int:
         e, animate = wave(device=dev)
     else:
         e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
-    tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
-                        scheme=args.scheme, shade_kernel=args.shade_kernel)
-    scheme = tracer.resolved_scheme()
+    if args.renderer == "pathtracer":
+        tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
+                            scheme=args.scheme, shade_kernel=args.shade_kernel)
+    elif args.renderer == "rasterizer":
+        tracer = Rasterizer(args.width, args.height, e.scene, e.camera,
+                            Config(antialiasing=args.antialiasing), dev, scheme=args.scheme)
+    else:
+        tracer = SimplePathTracer(args.width, args.height, e.scene, e.camera, config, dev)
+    scheme = tracer.resolved_scheme() if args.renderer != "simple" else "scan"
     frames = 0
 
     def step(fn):
@@ -186,8 +203,8 @@ def main() -> int:
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda t: -t[1])[:8]
 
-    print(f"[frame] {args.scene} {args.width}x{args.height}, scheme {scheme}, shade_kernel "
-          f"{args.shade_kernel}: render_frame() ms "
+    print(f"[frame] {args.renderer}, {args.scene} {args.width}x{args.height}, scheme {scheme}, "
+          f"antialiasing {args.antialiasing}, shade_kernel {args.shade_kernel}: render_frame() ms "
           f"{[round(x, 1) for x in frame_ms]}, median {frame_med:.1f}", flush=True)
     print("| Part | Device ms per frame | Kernels per frame |", flush=True)
     print("| --- | --- | --- |", flush=True)
@@ -206,7 +223,8 @@ def main() -> int:
 
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
-        json.dump({"device": smi, "scene": args.scene, "scheme": scheme,
+        json.dump({"device": smi, "renderer": args.renderer, "scene": args.scene,
+                   "scheme": scheme, "antialiasing": args.antialiasing,
                    "shade_kernel": args.shade_kernel,
                    "width": args.width, "height": args.height,
                    "frame_ms": frame_ms, "frame_ms_median": frame_med,
