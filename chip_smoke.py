@@ -116,6 +116,32 @@ Phases, one line each (any failure exits non-zero):
      plain PyTorch, as in flexlight_tpu). Each path prints its median frame
      ms, its device-busy ms a frame (torch.profiler over 2 more frames),
      its idle share and its peak device memory.
+ 10. serve, on theater at the headline config: (a) render_frame_u8 24 times
+     on each of six fresh renderers, at pipelined depths 0, 4, 1, 1, 4, 0,
+     the camera moved a little before each frame; every pipelined call
+     must be identical to the first synchronous run's frame that the
+     warm-up rule names (call i returns frame max(0, i - depth)); the
+     median steady frame ms (calls 7-24) of each run at depths 0, 1 and 4,
+     the device-busy ms (torch.profiler) and idle shares, and the calls of
+     a steady depth-4 frame that synchronize
+     with the device (torch.cuda.set_sync_debug_mode("warn")), each by its
+     source line, with the frame's uploads as they were before the repair
+     (pageable copies) and as they are (pinned, non-blocking); (b) the
+     frame server (serve.FrameServer on 127.0.0.1, port 0, renderer
+     "pathtracer"): GET / answers 200, /frame.png decodes to an [H, W, 3]
+     uint8 frame that is not black, POST /input KeyW moves the camera and a
+     mouse message turns it, POST /config {"max_reflections": 3} lands
+     between frames, /stats has fps > 0 and scheme "fused_split", a
+     counting KernelSet on the server's renderer and the wrappers' own
+     counts see PRE once a frame, POST and its list once a bounce (5, then
+     3), the 7 disc passes and FXAA once a frame; with `freeze` set, the
+     served PNG must be the plain versions' frame of the same index, bit
+     for bit; the served fps and median frame ms; the server stops and its
+     threads join within 10 s; (c) a FailoverRunner over 8 frames
+     (mirror_every 4) and checkpoint_now() (snapshot and write seconds of
+     the ~530 MB state, written under build/smoke/ and removed after): a
+     fresh renderer that resume()s renders the next frame identical to the
+     uninterrupted renderer's.
 Then one JSON line per the kernels (PRE: the theater call, with W's
 bound w_bound_ms, the resampling call's resample_ms, resample_plain_ms
 and resample_bound_ms, and the 1024-triangle call's cap_ms,
@@ -134,7 +160,8 @@ frame_ms, frame_plain_ms and frame_bound_ms the sums over the theater
 frame's 5 casts and frame_w_bound_ms that of W's full count, and closest
 hit adds t4095_ms, t4095_bound_ms and t4095_w_bound_ms at 4095 triangles;
 the rasterizer's kernels add raster_theater_launches /
-raster_dragon_launches, their counts in phase 9 (a) / (b);
+raster_dragon_launches, their counts in phase 9 (a) / (b), and the
+served frames' kernels serve_launches, their counts in phase 10 (b);
 the disc passes' ms and bound_ms are the theater frame's first call's,
 frame_ms and frame_bound_ms the sums over its calls of that pass), the
 card's name and power limit, and a last line {"ok": true, "device": {...}}.
@@ -366,6 +393,384 @@ def ptxas_usage(log: str):
     return out
 
 
+def decode_png(data: bytes):
+    """[H, W, 3] uint8 of a PNG as utils.image.png_bytes writes it (zlib,
+    filter 0 on every row); fails on any other PNG."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("the served frame is not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (rows[:, 0] != 0).any():
+        fail("the served PNG has rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def serve_phase(args, dev, engine, counted, device_busy, paths) -> dict:
+    """Phase 10 on theater at the headline config: (a) the path tracer's
+    pipelined fetch against the synchronous frames, its frame ms at depths
+    0, 1 and 4 and the synchronizing calls of a steady frame; (b) the
+    frame server on 127.0.0.1 through every endpoint; (c) a FailoverRunner
+    checkpoint resumed in a fresh renderer. Returns the kernels' launches
+    over the served frames."""
+    import collections
+    import traceback
+    import urllib.request
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from flexlight_tpu_torch import Camera
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.ops import fused as F
+    from flexlight_tpu_torch.ops import fused_kernel as SK
+    from flexlight_tpu_torch.ops import pathtrace as P
+    from flexlight_tpu_torch.serve import FrameServer
+    from flexlight_tpu_torch.utils import failover as FO
+
+    w, h = args.width, args.height
+    root = os.path.dirname(os.path.abspath(__file__))
+    depth = 4
+
+    # (a) the pipelined fetch ------------------------------------------------
+    def pipelined_run(pipe, n=24):
+        """render_frame_u8() n times at depth `pipe` on a fresh renderer,
+        the camera moved a little before each (so that every frame differs);
+        (renderer, frames, host ms of each call, peak GiB)."""
+        e = engine(w, h)
+        e.renderer = "pathtracer"
+        r = e.renderer
+        r.pipelined = pipe
+        x0 = e.camera.x
+        frames, ms = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n):
+            e.camera.x = x0 + 0.05 * i
+            t = time.perf_counter()
+            frames.append(r.render_frame_u8())
+            ms.append((time.perf_counter() - t) * 1000.0)
+        return r, frames, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def steady(ms):
+        return statistics.median(ms[6:])
+
+    # two rounds in the order 0, 4, 1, 1, 4, 0: every pipelined frame is
+    # held against the first round's synchronous frames
+    order = (0, depth, 1, 1, depth, 0)
+    sync, runs = None, {0: [], 1: [], depth: []}
+    for k, pipe in enumerate(order):
+        r, frames, ms, peak = pipelined_run(pipe)
+        if sync is None:
+            sync = frames
+            same = [i for i in range(len(sync) - 1) if np.array_equal(sync[i], sync[i + 1])]
+            if same:
+                fail(f"pipelined: synchronous frames {same} equal their successors; the "
+                     "check could not tell frames apart")
+        wrong = [i for i, f in enumerate(frames)
+                 if not np.array_equal(f, sync[max(0, i - pipe)])]
+        print(f"[serve] pipelined depth {pipe} (run {k + 1} of {len(order)}): {len(frames)} "
+              f"frames against the synchronous frames of the warm-up rule (call i returns "
+              f"frame max(0, i - {pipe})): tolerance: identical; {len(wrong)} differ -> "
+              f"{'ok' if not wrong else 'FAIL'}; median steady frame {steady(ms):.2f} ms "
+              f"(calls 7-{len(ms)})", flush=True)
+        if wrong:
+            fail(f"pipelined depth {pipe}: calls {wrong} differ from their synchronous frames")
+        runs[pipe].append(ms)
+        if pipe == depth:
+            r4, ms4, peak4 = r, ms, peak
+        del r, frames
+    # device busy of this renderer's frame (torch.profiler over 2 frames of
+    # _render_device); device_busy takes the median of frame_ms[1:], so it
+    # is handed the steady calls after one more
+    device_busy("serve-pipelined-depth4", r4, ms4[5:], peak4)
+    busy = paths["serve-pipelined-depth4"]["device_busy_ms"]
+    frame_ms = {pipe: [steady(ms) for ms in runs[pipe]] for pipe in (0, 1, depth)}
+    ms_txt = "; ".join(f"depth {k} " + " / ".join(f"{v:.2f}" for v in vs)
+                       for k, vs in frame_ms.items())
+    idle_txt = "; ".join(f"depth {k} " + " / ".join(f"{1.0 - busy / v:.3f}" for v in vs)
+                         for k, vs in frame_ms.items())
+    print(f"[serve] median steady frame ms (calls 7-24, render_frame_u8, host wall time; "
+          f"round 1 / round 2): {ms_txt}; device busy {busy:.3f} ms a frame; idle share "
+          f"{idle_txt}", flush=True)
+    paths["serve-pipelined-depth4"].update(
+        frame_ms_steady={str(k): v for k, v in frame_ms.items()},
+        frame_ms_all={str(k): v for k, v in runs.items()})
+
+    def sync_calls(r, n=4):
+        """{file:line: calls a frame} of the calls that synchronize with the
+        device (torch.cuda.set_sync_debug_mode("warn")) over n more frames
+        of `r`, each at the innermost line of this repository it came from."""
+        seen = collections.Counter()
+
+        package = os.path.join(root, "flexlight_tpu_torch")
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" not in str(message):
+                return
+            stack = traceback.extract_stack()[:-1]
+            frames = ([fr for fr in stack if fr.filename.startswith(package)]
+                      or [fr for fr in stack if fr.filename.startswith(root)])
+            where = (f"{os.path.relpath(frames[-1].filename, root)}:{frames[-1].lineno}"
+                     if frames else f"{filename}:{lineno}")
+            seen[where] += 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n):
+                    r.render_frame_u8()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return {k: v / n for k, v in sorted(seen.items())}
+
+    def blocking_upload(values, device):
+        """The uploads before the repair: copies from pageable memory."""
+        return torch.as_tensor(values, dtype=torch.float32, device=device)
+
+    repaired = P.upload
+    P.upload = F.upload = blocking_upload
+    try:
+        before = sync_calls(r4)
+    finally:
+        P.upload = F.upload = repaired
+    after = sync_calls(r4)
+    print(f"[serve] synchronizing calls a steady frame at depth {depth} "
+          f"(set_sync_debug_mode, 4 frames): before the upload repair "
+          f"{sum(before.values()):g} {before}; after {sum(after.values()):g} {after}",
+          flush=True)
+    paths["serve-pipelined-depth4"].update(sync_calls_before=before, sync_calls_after=after)
+    del r4, sync
+    torch.cuda.empty_cache()
+
+    # (b) the frame server ---------------------------------------------------
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    sr = e.renderer
+    calls = collections.Counter()
+
+    def counting(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    sr.kernels = KernelSet(*(counting(n, k) for n, k in zip(KernelSet._fields, KERNELS)))
+    per_frame = []   # (calls, launches, bounces) of each rendered frame
+    real_render = sr._render_device
+
+    def render_counted():
+        c0, l0 = dict(calls), {n: k.launches for n, k in counted}
+        out = real_render()
+        per_frame.append(({n: calls[n] - c0.get(n, 0) for n in KernelSet._fields},
+                          {n: k.launches - l0[n] for n, k in counted},
+                          sr.config.max_reflections))
+        return out
+
+    sr._render_device = render_counted
+    for _, k in counted:
+        k.launches = 0
+    server = FrameServer(e, port=0)
+    url = server.start()
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as res:
+            return res.status, res.headers.get("Content-Type"), res.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(url + path, data=json.dumps(obj).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as res:
+            return res.status, json.loads(res.read() or b"{}")
+
+    def wait(n, what):
+        if not server.wait_for_frame(n, timeout=300.0):
+            fail(f"serve: {what}: the server served {server._seq} frames, not {n}")
+
+    try:
+        wait(8, "first frames")
+        status, ctype, body = get("")
+        if status != 200 or not ctype.startswith("text/html") or b"/frame.png" not in body:
+            fail(f"serve: GET / answered {status} {ctype}")
+        status, ctype, body = get("frame.png")
+        img = decode_png(body)
+        if status != 200 or ctype != "image/png" or img.shape != (h, w, 3) or img.max() == 0:
+            fail(f"serve: /frame.png answered {status} {ctype}, {img.shape}, max {img.max()}")
+        print(f"[serve] {url}: GET / 200 text/html; after {server._seq} frames /frame.png 200 "
+              f"image/png decodes to {list(img.shape)} uint8, mean {img.mean():.2f}", flush=True)
+        cam = e.camera
+        pos0 = (cam.x, cam.y, cam.z)
+        post("input", {"type": "keydown", "code": "KeyW"})
+        wait(server._seq + 3, "frames with KeyW held")
+        post("input", {"type": "keyup", "code": "KeyW"})
+        pos1 = (cam.x, cam.y, cam.z)
+        fx0 = cam.fx
+        post("input", {"type": "mouse", "dx": 40, "dy": 0})
+        if pos1 == pos0 or cam.fx == fx0:
+            fail(f"serve: input did not reach the camera ({pos0} -> {pos1}, fx {fx0} -> "
+                 f"{cam.fx})")
+        print(f"[serve] POST /input: KeyW moved the camera {pos0} -> {pos1}; the mouse turned "
+              f"it, fx {fx0:.4f} -> {cam.fx:.4f}", flush=True)
+        status, accepted = post("config", {"max_reflections": 3})
+        seq_config = server._seq
+        wait(seq_config + 2, "frames after POST /config")
+        knobs = json.loads(get("config")[2])
+        if accepted != {"accepted": {"max_reflections": 3}} or knobs["max_reflections"] != 3:
+            fail(f"serve: POST /config answered {accepted}, GET /config {knobs}")
+        t_a, seq_a = time.perf_counter(), server._seq
+        wait(seq_a + 8, "frames after the config change")
+        t_b, seq_b = time.perf_counter(), server._seq
+        stats = json.loads(get("stats")[2])
+        if not stats["fps"] > 0 or stats["last"].get("scheme") != "fused_split":
+            fail(f"serve: /stats {stats}")
+        sr.freeze = True
+        wait(server._seq + 2, "frames after freeze")
+        n_since = sr._frame_count
+        served = decode_png(get("frame.png")[2])
+    finally:
+        t = time.perf_counter()
+        server.stop()
+        stop_s = time.perf_counter() - t
+    alive = [th.name for th in server._threads if th.is_alive()]
+    print(f"[serve] stopped in {stop_s:.2f} s; threads alive after the join: {alive}",
+          flush=True)
+    if alive or stop_s > 10.0:
+        fail("serve: the server's threads did not join within 10 s")
+    launches = {n: k.launches for n, k in counted}
+    served_fps = (seq_b - seq_a) / (t_b - t_a)
+    steady_ms = [rec["frame_ms"] for rec in sr.metrics.records
+                 if rec["max_reflections"] == 3][2:]
+    print(f"[serve] served fps {served_fps:.2f} ({seq_b - seq_a} frames served in "
+          f"{t_b - t_a:.2f} s after the config change; /stats fps {stats['fps']}); median "
+          f"frame ms {statistics.median(steady_ms):.2f} (render_frame_u8 at depth {depth}, "
+          f"{len(steady_ms)} frames); {len(per_frame)} frames rendered, {server._seq} served",
+          flush=True)
+    paths["serve-theater-1080p"] = {"served_fps": served_fps, "stats_fps": stats["fps"],
+                                    "frame_ms_median": statistics.median(steady_ms),
+                                    "frames_rendered": len(per_frame),
+                                    "frames_served": server._seq, "stop_s": stop_s}
+
+    # the counting KernelSet's calls and the wrappers' launches, frame by frame
+    bounce_seq = [b for _, _, b in per_frame]
+    k5 = bounce_seq.index(3) if 3 in bounce_seq else -1
+    if k5 <= 0 or set(bounce_seq[:k5]) != {5} or set(bounce_seq[k5:]) != {3}:
+        fail(f"serve: bounces per served frame {bounce_seq}, expected 5, ..., then 3, ...")
+    wrong = []
+    for i, (c, lau, b) in enumerate(per_frame):
+        expect = {"sp_pre": 1, "sp_post": b, "first_blur": 3, "second_blur": 3,
+                  "final_blur": 1, "fxaa": 1}
+        got_calls = {n: v for n, v in c.items() if v}
+        got_launches = {n: v for n, v in lau.items() if v}
+        if got_calls != expect or got_launches != dict(expect, sp_live_list=b):
+            wrong.append((i, got_calls, got_launches))
+    print(f"[serve] kernels a served frame (the counting KernelSet's calls; the wrappers' "
+          f"launches): {len(per_frame)} frames, bounces {bounce_seq[0]} then "
+          f"{bounce_seq[-1]} from frame {k5}; {len(wrong)} frames off the expected PRE 1, "
+          f"POST and its list once a bounce, 3 + 3 + 1 disc passes, FXAA 1 -> "
+          f"{'ok' if not wrong else 'FAIL'}; launches in all {launches}", flush=True)
+    if wrong:
+        fail(f"serve: launches off on frames {wrong[:3]}")
+
+    # the frozen frame against the plain frame of the same index: the camera
+    # has not moved since the config change, which restarted the
+    # accumulation, so the plain renderer replays that view
+    index = max(0, n_since - 1 - depth)
+    if not np.array_equal(served, sr._last_frame) or index < 3:
+        fail(f"serve: the frozen served frame is not the renderer's last frame, or its "
+             f"index {index} is too early to show the accumulation")
+    pcam = Camera()
+    pcam.x, pcam.y, pcam.z, pcam.fx, pcam.fy, pcam.fov = (cam.x, cam.y, cam.z, cam.fx,
+                                                          cam.fy, cam.fov)
+    plain = PathTracer(w, h, e.scene, pcam, e.config, dev, kernels=PLAIN)
+    for _ in range(index + 1):
+        ref = plain.render_frame_u8()
+    count = int((served != ref).sum())
+    print(f"[serve] frozen served frame: frame {index} of {n_since} rendered since the config "
+          f"change (depth {depth}) against the same frame through the plain versions: "
+          f"tolerance: identical; {count} values differ -> {'ok' if count == 0 else 'FAIL'}",
+          flush=True)
+    if count:
+        fail("serve: the frozen served frame differs from its plain frame")
+    del plain, e, sr, server
+    torch.cuda.empty_cache()
+
+    # (c) the checkpoint -------------------------------------------------------
+    ck_dir = os.path.join(root, "build", "smoke")
+    os.makedirs(ck_dir, exist_ok=True)
+    ck_path = os.path.join(ck_dir, "state.npz")
+    if os.path.exists(ck_path):
+        os.remove(ck_path)
+    timed = {}
+
+    def timing(name, fn):
+        def call(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            timed[name] = time.perf_counter() - t
+            return out
+        return call
+
+    real_fo = FO.snapshot_render_state, FO.write_render_state
+    FO.snapshot_render_state = timing("snapshot", real_fo[0])
+    FO.write_render_state = timing("write", real_fo[1])
+    try:
+        e = engine(w, h)
+        e.renderer = "pathtracer"
+        r = e.renderer
+        runner = FO.FailoverRunner(r, ck_path, mirror_every=4)
+        for _ in range(8):
+            runner.step()
+        runner.checkpoint_now()
+    finally:
+        FO.snapshot_render_state, FO.write_render_state = real_fo
+    state_mb = sum(a.nbytes for a in runner._mirror["arrays"].values()) / 1e6
+    file_mb = os.path.getsize(ck_path) / 1e6
+    uninterrupted = r.render_frame()
+    del runner, r, e
+    torch.cuda.empty_cache()
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    runner = FO.FailoverRunner(e.renderer, ck_path)
+    t = time.perf_counter()
+    resumed_ok = runner.resume()
+    load_s = time.perf_counter() - t
+    if not resumed_ok or e.renderer._frame_count != 8:
+        fail(f"checkpoint: resume() {resumed_ok}, frame count {e.renderer._frame_count}")
+    resumed = runner.step()
+    count = int((resumed != uninterrupted).sum())
+    print(f"[serve] checkpoint: FailoverRunner, 8 frames (mirror_every 4), checkpoint_now(): "
+          f"snapshot {timed['snapshot']:.3f} s, write {timed['write']:.3f} s ({state_mb:.1f} MB "
+          f"of state, {file_mb:.1f} MB file), resume {load_s:.3f} s; the resumed renderer's "
+          f"next frame against the uninterrupted one: tolerance: identical; {count} values "
+          f"differ -> {'ok' if count == 0 else 'FAIL'}", flush=True)
+    if count:
+        fail("checkpoint: the resumed frame differs from the uninterrupted one")
+    paths["checkpoint-theater-1080p"] = {"snapshot_s": timed["snapshot"],
+                                         "write_s": timed["write"], "resume_s": load_s,
+                                         "state_mb": state_mb, "file_mb": file_mb}
+    os.remove(ck_path)
+    del runner, e
+    torch.cuda.empty_cache()
+    summary = {k: v for k, v in paths.items() if k.startswith(("serve", "checkpoint"))}
+    print(f"[serve] {json.dumps(summary)}", flush=True)
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -388,7 +793,7 @@ def main() -> int:
 
 
 def drive(args, dev, smi: str) -> int:
-    """Phases 2-9 on `dev`."""
+    """Phases 2-10 on `dev`."""
     import numpy as np
     import torch
 
@@ -1796,6 +2201,11 @@ def drive(args, dev, smi: str) -> int:
     print(f"[phase] rasterizer, TAA and simple paths: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- 10. serve: the pipelined fetch, the frame server, the checkpoint -----
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(args, dev, engine, counted, device_busy, paths)
+    print(f"[phase] serve: {time.perf_counter() - t0:.1f} s", flush=True)
+
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
     if loaded:
@@ -1816,6 +2226,9 @@ def drive(args, dev, smi: str) -> int:
         raster = {f"raster_{tag}_launches": c[name] for tag, c in
                   (("theater", raster_launches), ("dragon", raster_sparse_launches))
                   if c[name]}
+        # and the frame server's (phase 10 (b))
+        if serve_launches[name]:
+            raster["serve_launches"] = serve_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
                         **results[name], **raster})

@@ -2,9 +2,10 @@
 in each of models/pathtracer.py, rasterizer.py and simple.py): the size
 from renderQuality, halt, fpsLimit, freeze, fps, metrics,
 updateScene / updatePrimaryLightSources, the per-frame transform upload
-and the fetch and bookkeeping of a finished frame, on one explicit torch
-device. A renderer gives `_render_device` (one frame, on the device) and
-what its metrics record beside the standard fields (`_frame_extra`)."""
+and the fetch (`_fetch`) and bookkeeping of a finished frame, on one
+explicit torch device. A renderer gives `_render_device` (one frame, on
+the device) and what its metrics record beside the standard fields
+(`_frame_extra`)."""
 
 from __future__ import annotations
 
@@ -122,7 +123,7 @@ class Renderer:
         display = self._render_device()
         if as_u8:
             display = torch.round(torch.clamp(display, 0.0, 1.0) * 255.0).to(torch.uint8)
-        self._last_frame = display.cpu().numpy()
+        self._last_frame = self._fetch(display)
         self._fps_frames += 1
         now = time.perf_counter()
         self._last_frame_time = now
@@ -133,6 +134,10 @@ class Renderer:
             self._fps_frames = 0
         frame_record(self, (now - frame_t0) * 1000.0, **self._frame_extra())
         return self._last_frame
+
+    def _fetch(self, display: torch.Tensor) -> np.ndarray:
+        """The finished frame on the host (a synchronous copy)."""
+        return display.cpu().numpy()
 
     def _throttle(self):
         """fpsLimit: wait out the rest of the frame's share of a second."""

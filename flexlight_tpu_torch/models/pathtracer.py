@@ -205,6 +205,13 @@ class PathTracer(Renderer):
         self._taa_state = None
         self._jitter = Jitter()
         self._prepared_shape = None
+        # The swapchain fetch: render_frame returns frame N-k while frame N
+        # computes. `pipelined` is the depth k: False / 0 = synchronous,
+        # True / 1 = double buffer, 2-4 = deeper (flexlight_tpu's
+        # PathTracer.pipelined). The queue holds the frames whose
+        # device -> host copies are in flight.
+        self.pipelined = False
+        self._pending_display = []
 
     def resolved_scheme(self) -> str:
         """The scheme a frame runs. "auto" takes flexlight_tpu's rule on a
@@ -241,6 +248,7 @@ class PathTracer(Renderer):
                                           self.width, self.device)
             self._frame_count = 0
             self._prepared_shape = shape
+            self._pending_display = []
 
     def render_frame_u8(self) -> np.ndarray:
         """Like render_frame, quantized to uint8 on the device (the
@@ -268,5 +276,57 @@ class PathTracer(Renderer):
         assert_finite((display, self._temporal_state, self._taa_state), "pathtracer.frame")
         return display
 
+    def _fetch(self, display: torch.Tensor) -> np.ndarray:
+        """With `pipelined` = k, start this frame's copy to the host and
+        return frame N-k, as flexlight_tpu does: during warm-up the oldest
+        queued frame (frame 0 for the first k + 1 calls, then 1, 2, ...),
+        and a lowered depth drains the queue at once. A returned array is
+        the frame's own (`_HostCopy`): no later copy writes into it."""
+        depth = int(self.pipelined)
+        if not depth:
+            return super()._fetch(display)
+        self._pending_display.append(_HostCopy(display))
+        if len(self._pending_display) > depth:
+            while len(self._pending_display) > depth:
+                frame = self._pending_display.pop(0)
+        else:
+            frame = self._pending_display[0]
+        return frame.result()
+
     def _frame_extra(self) -> dict:
         return {"scheme": self.resolved_scheme()}
+
+
+class _HostCopy:
+    """A frame's device -> host copy in flight. On a CUDA device the copy
+    goes into pinned host memory with non_blocking=True on the stream that
+    made the frame, and an event marks its end: the host goes on to the
+    next frame, and `result()` waits for that event only. The copy is
+    enqueued before this returns, so the device tensor may be freed at
+    once: the stream orders its reuse after the copy. `result()` returns
+    a fresh array copied out of the pinned buffer, which then goes back to
+    torch's caching host allocator for a later frame: a pinned block is
+    handed out again only after the events of its copies have passed, and
+    no later copy writes into a returned array. A CPU frame is its own
+    host array."""
+
+    def __init__(self, display: torch.Tensor):
+        if display.device.type == "cuda":
+            self.host = torch.empty(display.shape, dtype=display.dtype, pin_memory=True)
+            self.host.copy_(display, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(display.device))
+        else:
+            self.host = display
+            self.event = None
+        self._array = None
+
+    def result(self) -> np.ndarray:
+        if self._array is None:
+            if self.event is None:
+                self._array = self.host.numpy()
+            else:
+                self.event.synchronize()
+                self._array = self.host.numpy().copy()
+            self.host = None
+        return self._array

@@ -48,7 +48,7 @@ from .intersect_kernel import any_hit_plain, build_w4, closest_hit_plain
 from .pathtrace import (MRT, BounceCarry, BounceSurface, assemble_mrt, bounce_apply,
                         bounce_carry_init, bounce_commit, bounce_pre, bounce_shade,
                         bounce_tex, build_material_table, camera_rays, inverse_view,
-                        sample_cos)
+                        sample_cos, upload)
 from .rng import f32
 
 MAX_TRIS = 1024    # flexlight_tpu/ops/fused.py:72, the fused schemes' cap
@@ -291,8 +291,8 @@ def fused_frame_plain(dirs, ndc, w4, ids, mat, lights, ambient, albedo_tab, pbr_
 def frame_inputs(buffers: SceneBuffers, width: int, height: int, camera_pos, view_matrix):
     """(cam, dirs [3, N], ndc [2, N], w4, ids, material table) of a frame."""
     dev = buffers.geometry.device
-    cam = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
-    inv_view = inverse_view(view_matrix).to(dev)
+    cam = upload(camera_pos, dev)
+    inv_view = upload(inverse_view(view_matrix), dev)
     world_geom = world_geometry(buffers)
     w4, ids = build_w4(world_geom, buffers.id_buffer)
     mat = build_material_table(buffers, world_geom).contiguous()
@@ -351,9 +351,8 @@ def render_mrt_fused(buffers: SceneBuffers, width: int, height: int, camera_pos,
     cam, dirs, ndc, w4, ids, mat = frame_inputs(buffers, width, height, camera_pos,
                                                  view_matrix)
     dev = cam.device
-    seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
-    cos_samples = torch.tensor([sample_cos(s) for s in range(config.samples_per_ray)],
-                               dtype=torch.float32, device=dev)
+    seed = upload(random_seed, dev)
+    cos_samples = upload([sample_cos(s) for s in range(config.samples_per_ray)], dev)
     block = kernels.fused_frame(dirs, ndc, w4, ids, mat, buffers.lights.contiguous(),
                                 buffers.ambient, buffers.albedo_tab, buffers.pbr_tab,
                                 buffers.tpo_tab, cam, seed, cos_samples, config)

@@ -88,6 +88,19 @@ def inverse_view(view_matrix) -> torch.Tensor:
     return torch.linalg.inv(torch.as_tensor(view_matrix, dtype=torch.float32).cpu())
 
 
+def upload(values, device) -> torch.Tensor:
+    """A frame's small host values (the camera position, the inverse view,
+    the seed) as float32 on `device`. To a CUDA device they go through
+    pinned memory with non_blocking=True: a copy from pageable memory
+    synchronizes the stream, so each frame's first upload would wait for
+    every frame still queued, and a pipelined fetch
+    (models.pathtracer.PathTracer.pipelined) would overlap nothing."""
+    t = torch.as_tensor(values, dtype=torch.float32)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def camera_rays(width: int, height: int, position: torch.Tensor,
                 inv_view: torch.Tensor):
     """Camera rays in place of the reference's instanced raster pass:
@@ -669,9 +682,9 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                              f"lights, the shading kernels take <= {shade.MAX_LIGHTS}")
 
     dev = buffers.geometry.device
-    camera_pos = torch.as_tensor(camera_pos, dtype=torch.float32, device=dev)
-    inv_view = inverse_view(view_matrix).to(dev)
-    random_seed = torch.as_tensor(random_seed, dtype=torch.float32, device=dev)
+    camera_pos = upload(camera_pos, dev)
+    inv_view = upload(inverse_view(view_matrix), dev)
+    random_seed = upload(random_seed, dev)
     world_geom = world_geometry(buffers)
     traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 

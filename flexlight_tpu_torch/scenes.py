@@ -1,5 +1,10 @@
 """Scenes of the port's slice.
 
+`cornell` is examples/cornell.py's build_scene line for line (the port of
+the reference's examples/cornell.js; its checker texture is made in code,
+so it needs no asset file), the default scene of the frame server
+(`python -m flexlight_tpu_torch.serve cornell`).
+
 `theater` is examples/theater.py's build_scene line for line (the port of
 the reference's examples/theater.js: 9 lights, wood-textured floor,
 striped metallic back mirror), on the port's engine, taking the floor
@@ -67,6 +72,66 @@ def stand_in_wood_data(seed: int) -> np.ndarray:
     rgb = np.clip(shade[..., None] * base, 0.0, 1.0)
     q = np.round(rgb * 255.0).astype(np.float32)
     return q * np.float32(1.0 / 255.0)
+
+
+def cornell(size=(256, 256), device=None, engine=None):
+    """examples/cornell.py:build_scene line for line (the reference's
+    examples/cornell.js: the red / green box, two cuboids, one light, the
+    PBR checker texture made in code) on a new
+    flexlight_tpu_torch.FlexLight of `size` on `device`, or on `engine` (a
+    FlexLight of either package). Returns the engine."""
+    if engine is None:
+        engine = FlexLight(size, device=device)
+    engine.io = "web"
+
+    camera = engine.camera
+    scene = engine.scene
+
+    # PBR checker texture (cornell.js:18-31)
+    tile = np.zeros((128, 128, 3), dtype=np.float32)
+    a = np.array([1, 0, 0.4], dtype=np.float32)
+    b = np.array([0.1, 1, 0], dtype=np.float32)
+    tile[:64, :64] = a
+    tile[:64, 64:] = b
+    tile[64:, :64] = b
+    tile[64:, 64:] = a
+    caro_tex = scene.texture_from_rme(tile.reshape(-1), 128, 128)
+    scene.pbr_textures.push(caro_tex)
+    scene.standardTextureSizes = [128, 128]
+
+    camera.z = -20
+    scene.primaryLightSources = [[0, 4, 0]]
+    scene.primaryLightSources[0].intensity = 160
+
+    bottom_plane = scene.Plane([-5, -5, -21], [5, -5, -21], [5, -5, 5], [-5, -5, 5])
+    top_plane = scene.Plane([-5, 5, -21], [-5, 5, 5], [5, 5, 5], [5, 5, -21])
+    back_plane = scene.Plane([-5, -5, 5], [5, -5, 5], [5, 5, 5], [-5, 5, 5])
+    front_plane = scene.Plane([-5, -5, -21], [-5, 5, -21], [5, 5, -21], [5, -5, -21])
+    left_plane = scene.Plane([-5, -5, -21], [-5, -5, 5], [-5, 5, 5], [-5, 5, -21])
+    right_plane = scene.Plane([5, -5, -21], [5, 5, -21], [5, 5, 5], [5, -5, 5])
+
+    for item in [bottom_plane, top_plane, back_plane, front_plane, left_plane, right_plane]:
+        item.color = [230, 230, 230]
+    left_plane.color = [220, 0, 0]
+    right_plane.color = [0, 150, 0]
+
+    cube = [None, None]
+    cube[0] = engine.scene.Cuboid(-3, -1.5, -5, -2, -1, 1)
+    cube[0].textureNums = [-1, 0, -1]
+    x, x2, y, y2, z, z2 = 0, 3, -5, -1, -1, 2
+    cube[1] = scene.Cuboid(0, 3, -5, -1, -1, 2)
+    b0, b1, b2, b3 = [x + 1, y, z], [x2, y, z + 1], [x2 - 1, y, z2], [x, y, z2 - 1]
+    t0, t1, t2, t3 = [x + 1, y2, z], [x2, y2, z + 1], [x2 - 1, y2, z2], [x, y2, z2 - 1]
+    cube[1][0] = scene.Plane(t0, t1, t2, t3, [0, 1, 0])
+    cube[1][1] = scene.Plane(t1, b1, b2, t2, [1, 0, 0])
+    cube[1][2] = scene.Plane(t2, b2, b3, t3, [0, 0, 1])
+    cube[1][3] = scene.Plane(b3, b2, b1, b0, [0, -1, 0])
+    cube[1][4] = scene.Plane(t3, b3, b0, t0, [-1, 0, 0])
+    cube[1][5] = scene.Plane(t0, b0, b1, t1, [0, 0, -1])
+
+    box = [bottom_plane, top_plane, back_plane, front_plane, left_plane, right_plane]
+    scene.queue.push(cube, box)
+    return engine
 
 
 def theater(texture: Texture, device=None, engine=None):

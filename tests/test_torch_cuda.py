@@ -654,3 +654,33 @@ def test_the_alive_list_on_the_card(dev):
         assert got.is_cuda and int(count) == k
         assert torch.equal(got[:k].sort().values, ref[:k])
         assert identical(st, ref_state)
+
+
+def test_pipelined_frames_are_the_synchronous_frames_on_the_card(dev):
+    """A depth-4 pipelined sequence on theater at 64x36 (the fetch goes
+    through pinned memory, a non-blocking copy and an event): every frame
+    is identical to the synchronous frame the warm-up rule names (frame 0
+    for the first 5 calls, then 1, 2, ...). The camera moves every frame,
+    so the frames differ from one another."""
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+
+    e = theater(stand_in_wood_texture(0), device=dev)
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=1, max_reflections=5)
+
+    def run(depth, n=10):
+        tracer = PathTracer(64, 36, e.scene, e.camera, cfg, dev)
+        tracer.pipelined = depth
+        x0, frames = e.camera.x, []
+        for i in range(n):
+            e.camera.x = x0 + 0.5 * i
+            frames.append(tracer.render_frame_u8())
+        e.camera.x = x0
+        return frames
+
+    sync = run(0)
+    assert all(not np.array_equal(a, b) for i, a in enumerate(sync) for b in sync[i + 1:])
+    frames = run(4)
+    for i, f in enumerate(frames):
+        assert f.dtype == np.uint8 and np.array_equal(f, sync[max(0, i - 4)]), i

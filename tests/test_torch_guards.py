@@ -24,14 +24,17 @@ def _run(code):
 
 
 def test_port_and_a_cpu_frame_never_import_jax():
-    """Importing the port and rendering a CPU frame on the fused_split,
-    kernel and fused schemes, a TAA frame, a frame of the default renderer
-    (the rasterizer) and one of the simple renderer loads no module of jax
-    and none of flexlight_tpu: the port keeps its own copy of what it
-    uses."""
+    """Importing the port (with its frame server and runtime utilities)
+    and rendering a CPU frame on the fused_split, kernel and fused
+    schemes, a pipelined frame, a TAA frame, a frame of the default
+    renderer (the rasterizer) and one of the simple renderer loads no
+    module of jax and none of flexlight_tpu: the port keeps its own copy
+    of what it uses."""
     code = """
 import sys
 import flexlight_tpu_torch as port
+import flexlight_tpu_torch.serve
+from flexlight_tpu_torch.utils import checkpoint, failover, glpack, image, settings, timing
 from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
 e = theater(stand_in_wood_texture(0), device="cpu")
@@ -42,6 +45,8 @@ e.renderer = "pathtracer"
 img = e.renderer.render_frame()
 assert img.shape == (12, 16, 3)
 assert e.renderer.metrics.last["scheme"] == "fused_split"
+e.renderer.pipelined = 2
+assert e.renderer.render_frame_u8().shape == (12, 16, 3)
 pt = PathTracer(16, 12, e.scene, e.camera, e.config, "cpu", scheme="kernel")
 assert pt.render_frame().shape == (12, 16, 3)
 from flexlight_tpu_torch.scenes import wave
@@ -132,7 +137,8 @@ def _engine(device="cpu"):
 
 def test_unported_surface_raises():
     """What stays unported raises: the mxu and clustered casts, on both
-    renderers that take a scheme. The rasterizer and TAA render."""
+    renderers that take a scheme. The rasterizer and TAA render. As in
+    flexlight_tpu, only the path tracer has a pipelined fetch."""
     import flexlight_tpu_torch as port
     from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.models.rasterizer import Rasterizer
@@ -145,6 +151,11 @@ def test_unported_surface_raises():
     assert e.renderer.render_frame().shape == (8, 8, 3)
     e.renderer = "pathtracer"
     assert e.renderer.render_frame().shape == (8, 8, 3)
+    assert hasattr(e.renderer, "pipelined")
+    e.renderer = "rasterizer"
+    assert not hasattr(e.renderer, "pipelined")
+    e.api = "simple"
+    assert not hasattr(e.renderer, "pipelined")
     for scheme in ("mxu", "clustered"):
         for cls in (PathTracer, Rasterizer):
             r = cls(8, 8, e.scene, e.camera, Config(), "cpu", scheme=scheme)
