@@ -142,6 +142,30 @@ Phases, one line each (any failure exits non-zero):
      the ~530 MB state, written under build/smoke/ and removed after): a
      fresh renderer that resume()s renders the next frame identical to the
      uninterrupted renderer's.
+ 11. the last slice's paths (casts_and_ranks_phase): (a) theater at
+     1080p, the headline config, on scheme="mxu" through render_frame, 2
+     frames identical to the same frames on scheme="kernel" (the same
+     k-order products), with the disc passes and FXAA launched and no
+     cast kernel; (b) the dragon stand-in at 1080p with the direct config
+     (bench.py:68-91: 1 spp, 5 bounces, no post) on scheme="clustered",
+     one frame through render_frame, then its MRT (CUDA events around the
+     pass) against the scheme="sparse" MRT of the same frame: at most
+     0.01% of the pixels may differ (rays whose two nearest triangles lie
+     within rounding of each other; 4 of 2,073,600 on the H100); (c) the
+     rasterizer at half size on scheme="mxu" (theater, identical to
+     "kernel") and "clustered" (the dragon stand-in, against "sparse", the
+     same 0.01%); (d)-(f) two ranks
+     spawned on this one card (NCCL takes one rank a card, so they mesh
+     over gloo): frame_pipeline_sharded_halo on theater 1080p, tile 2, 3
+     frames, each display identical to the one-process display of the
+     same seeds and states, each rank's kernels launched exactly as the
+     one-process frame launches them (PRE 1, POST 5, the passes 3 + 3 + 1
+     and FXAA 1 a frame), and the frame ms of both ("two ranks sharing one
+     card, not a scaling number"); render_mrt_sharded at 2
+     spp on tile 1 x sample 2 (colour within 1e-4, every other channel
+     identical); and broadcast_scene (rank 1 starts from zeros; both ranks
+     end with the buffers of this process). Each path's frame ms, device
+     ms and peak memory in its [paths] line.
 Then one JSON line per the kernels (PRE: the theater call, with W's
 bound w_bound_ms, the resampling call's resample_ms, resample_plain_ms
 and resample_bound_ms, and the 1024-triangle call's cap_ms,
@@ -161,7 +185,10 @@ frame's 5 casts and frame_w_bound_ms that of W's full count, and closest
 hit adds t4095_ms, t4095_bound_ms and t4095_w_bound_ms at 4095 triangles;
 the rasterizer's kernels add raster_theater_launches /
 raster_dragon_launches, their counts in phase 9 (a) / (b), and the
-served frames' kernels serve_launches, their counts in phase 10 (b);
+served frames' kernels serve_launches, their counts in phase 10 (b),
+and their counts on phase 11's paths (mxu_, clustered_, raster_mxu_,
+raster_clustered_launches, and ranks_launches: rank 0's over its 3
+sharded frames);
 the disc passes' ms and bound_ms are the theater frame's first call's,
 frame_ms and frame_bound_ms the sums over its calls of that pass), the
 card's name and power limit, and a last line {"ok": true, "device": {...}}.
@@ -177,7 +204,13 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
+# the share of pixels in which a clustered frame or MRT may differ from its
+# sparse counterpart: rays whose two nearest triangles lie within rounding
+# of each other take either (4 of 2,073,600 pixels at 1080p and 0 of
+# 518,400 at 960x540 on the H100); 0.01% is 207 and 51 pixels
+KNIFE_EDGE_SHARE = 1e-4
 # the least time the card could take: the H100 SXM's memory rate and its
 # fp32 rate outside the tensor cores (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -771,6 +804,351 @@ def serve_phase(args, dev, engine, counted, device_busy, paths) -> dict:
 
 
 
+def _leaves(t):
+    for x in t:
+        if isinstance(x, tuple):
+            yield from _leaves(x)
+        else:
+            yield x
+
+
+def _digest(buffers) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in _leaves(buffers):
+        h.update(str(tuple(x.shape)).encode() + str(x.dtype).encode())
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_main(rank: int, out_dir: str, width: int, height: int, seed: int, n_frames: int):
+    """One of phase 11's two ranks (start method spawn): both render on
+    cuda:0 over a "cpu" (gloo) mesh, since NCCL takes one rank a card. It
+    joins the group through a file store under `out_dir`, takes rank 0's
+    scene buffers (f), renders n_frames of the strip-sharded headline
+    pipeline on a tile-2 mesh (d) and one 2-spp MRT on a tile-1 x sample-2
+    mesh (e), and writes what it got, its frame ms and its kernels'
+    launches to out_dir/rank<r>.pt. An exception fails its process, and so
+    the phase."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from flexlight_tpu_torch import Config, reset_global_registry
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet
+    from flexlight_tpu_torch.ops.buffers import build_scene_buffers
+    from flexlight_tpu_torch.parallel import multihost
+    from flexlight_tpu_torch.parallel import tile_sharding as T
+    from flexlight_tpu_torch.post.taa import taa_history
+    from flexlight_tpu_torch.post.temporal import TemporalState
+    from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"file://{os.path.join(out_dir, 'store')}", 2, rank)
+    config = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                    samples_per_ray=1, max_reflections=5)
+    reset_global_registry()
+    e = theater(stand_in_wood_texture(seed), device=dev)
+    local = build_scene_buffers(e.scene, dev)
+    res = {"local_digest": _digest(local)}
+    # (f) rank 1 starts from zeros of the leader's shapes
+    mine = local if rank == 0 else type(local)(*(
+        type(x)(*(torch.zeros_like(y) for y in x)) if isinstance(x, tuple)
+        else torch.zeros_like(x) for x in local))
+    res["zeros_before"] = rank == 1 and all(float(x.abs().max()) == 0.0 for x in _leaves(mine)
+                                            if x.numel())
+    buffers = multihost.broadcast_scene(mine)
+    res["digest"] = _digest(buffers)
+    res["is_leader"] = multihost.is_leader()
+
+    # (d) the strip-sharded headline: two 540-row strips, halo pipeline
+    mesh = T.make_mesh(2, 1, "cpu")
+    pos, view = e.camera.position, e.camera.view_matrix(width, height)
+    temporal = TemporalState.create(config.temporal_samples, height, width, dev)
+    taa = taa_history(config.antialiasing, height, width, dev)
+    for k in KERNELS:
+        k.launches = 0
+    displays, frame_ms = [], []
+    for f in range(n_frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        display, temporal, taa = T.frame_pipeline_sharded_halo(
+            buffers, pos, view, float(f % config.temporal_samples), temporal, taa, width,
+            height, config, mesh, scheme="fused_split", kernels=KERNELS)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1000.0)
+        displays.append(display.cpu())
+    res["displays"] = displays
+    res["frame_ms"] = frame_ms
+    res["launches"] = {name: k.launches for name, k in zip(KernelSet._fields, KERNELS)
+                       if k.launches}
+    res["halo"] = min(max(32, T.required_post_halo(config)), height // 2)
+
+    # (e) the sample-sharded MRT at 2 spp
+    mesh2 = T.make_mesh(1, 2, "cpu")
+    cfg2 = config.replace(samples_per_ray=2)
+    res["mrt"] = tuple(x.cpu() for x in T.render_mrt_sharded(
+        buffers, width, height, pos, view, cfg2, 0.0, mesh2, scheme="fused_split",
+        kernels=KERNELS))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    # a barrier on a host tensor: gloo's, never NCCL's on this shared card
+    torch.distributed.all_reduce(torch.zeros(1))
+    torch.distributed.destroy_process_group()
+
+
+def casts_and_ranks_phase(args, dev, smi: str, engine, dragon_engine, tools) -> dict:
+    """Phase 11, this slice's paths: (a) the path tracer on theater at the
+    headline config on scheme="mxu", against the same frames on
+    scheme="kernel"; (b) the dragon stand-in at the direct config
+    (bench.py:68-91: 1 spp, 5 bounces, no post) on scheme="clustered",
+    its MRT against the scheme="sparse" MRT of the same frame; (c) the
+    rasterizer at half size on scheme="mxu" (theater, against "kernel") and
+    "clustered" (the dragon stand-in, against "sparse"); (d)-(f) two
+    spawned ranks on this one card over a gloo mesh: the strip-sharded
+    headline pipeline (frame_pipeline_sharded_halo, tile 2) against the
+    one-process frames of the same seeds and states, the sample-sharded
+    2-spp MRT (render_mrt_sharded, tile 1 x sample 2) against the
+    one-process MRT, and broadcast_scene. `tools` holds phase 4's
+    drive_frames / expect_launches / device_busy, the counted wrappers
+    and the paths dict. Returns each path's launches for the kernels
+    line."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from flexlight_tpu_torch import Config
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, frame_pipeline
+    from flexlight_tpu_torch.ops.buffers import build_scene_buffers
+    from flexlight_tpu_torch.ops.pathtrace import render_mrt
+    from flexlight_tpu_torch.post.taa import taa_history
+    from flexlight_tpu_torch.post.temporal import TemporalState
+
+    w, h = args.width, args.height
+    w2, h2 = w // 2, h // 2
+    n = 2
+    launches = {}
+    disc = {"first_blur": 3, "second_blur": 3, "final_blur": 1, "fxaa": 1}
+    off = {name: 0 for name in ("closest_hit", "any_hit", "sp_pre", "sp_post", "sparse_flags",
+                                "sparse_key", "sparse_closest", "sparse_any", "fused_frame",
+                                "shade", "interp_shade")}
+
+    def busy_line(label, renderer, frame_ms, peak, n_profiled=2):
+        """device_busy, then its numbers again beside the card's name and
+        power limit."""
+        tools.device_busy(label, renderer, frame_ms, peak, n_profiled=n_profiled)
+        p = tools.paths[label]
+        print(f"[{label}] frame {p['frame_ms_median']:.1f} ms, device busy "
+              f"{p['device_busy_ms']:.3f} ms, peak {p['peak_gib']:.2f} GiB | {smi}", flush=True)
+
+    # (a) mxu: theater, the headline, 1920 x 1080 ----------------------------
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    e.renderer.scheme = "kernel"
+    ref = tools.drive_frames("mxu-reference, scheme 'kernel'", e.renderer, n)[0]
+    e = engine(w, h)
+    e.renderer = "pathtracer"
+    e.renderer.scheme = "mxu"
+    frames, counts, frame_ms, peak = tools.drive_frames("mxu", e.renderer, n)
+    tools.expect_launches("theater on scheme='mxu'", counts, n, dict(off, **disc))
+    differ = sum(int((a != b).any(axis=-1).sum()) for a, b in zip(frames, ref))
+    print(f"[mxu] theater {w}x{h}, headline config: {n} frames against the same frames on "
+          f"scheme 'kernel' (the same k-order products and accept window): tolerance: "
+          f"identical; {differ} pixels differ -> {'ok' if differ == 0 else 'FAIL'}", flush=True)
+    if differ:
+        fail("scheme='mxu' renders other frames than scheme='kernel'")
+    if not np.isfinite(frames[-1]).all() or float(frames[-1].max()) <= 0.0:
+        fail("mxu: the frame is not finite or all black")
+    busy_line(f"mxu-theater-{h}p", e.renderer, frame_ms, peak)
+    launches["mxu"] = counts
+    del e, frames, ref
+    torch.cuda.empty_cache()
+
+    # (b) clustered: the dragon stand-in, direct config, 1920 x 1080 ---------
+    direct = Config(temporal=False, filter=False, antialiasing=None, samples_per_ray=1,
+                    max_reflections=5)
+    e, _ = tools.dragon_direct(w, h, direct)
+    e.renderer.scheme = "clustered"
+    frames, counts, frame_ms, peak = tools.drive_frames("clustered", e.renderer, 1)
+    tools.expect_launches("the dragon stand-in on scheme='clustered'", counts, 1,
+                          dict(off, first_blur=0, second_blur=0, final_blur=0, fxaa=0))
+    if not np.isfinite(frames[-1]).all() or float(frames[-1].max()) <= 0.0:
+        fail("clustered: the frame is not finite or all black")
+    buffers = e.renderer._buffers
+    mrt_args = (buffers, w, h, e.camera.position, e.camera.view_matrix(w, h), direct, 0.0)
+    # the MRT pass between two CUDA events (the profiler's per-kernel
+    # records of ~10^6 small torch kernels would cost more than the frame)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    mrt_c = render_mrt(*mrt_args, scheme="clustered")
+    end.record()
+    end.synchronize()
+    mrt_ms = (time.perf_counter() - t) * 1000.0
+    event_ms = start.elapsed_time(end)
+    tools.paths[f"clustered-dragon-{h}p-direct"] = {
+        "frame_ms_median": frame_ms[0], "frame_ms": frame_ms, "mrt_ms": mrt_ms,
+        "mrt_device_ms_events": event_ms, "peak_gib": peak}
+    print(f"[clustered] dragon stand-in {w}x{h}, direct config: frame {frame_ms[0]:.1f} ms "
+          f"(render_frame), its MRT pass {mrt_ms:.1f} ms on the host, {event_ms:.1f} ms "
+          f"between CUDA events on the device (idle gaps included; busy not measured), peak "
+          f"device memory {peak:.2f} GiB | {smi}", flush=True)
+    mrt_s = render_mrt(*mrt_args, scheme="sparse", kernels=KERNELS)
+    n_px = w * h
+    differ = torch.zeros(n_px, dtype=torch.bool, device=dev)
+    for a, b in zip(mrt_c, mrt_s):
+        differ |= (a != b).reshape(n_px, -1).any(dim=-1)
+    share = float(differ.float().mean())
+    print(f"[clustered] its MRT against the scheme 'sparse' MRT of the same frame (the same "
+          f"record products; a ray whose two nearest triangles lie within rounding of each "
+          f"other may take either): {int(differ.sum())} of {n_px} pixels differ "
+          f"({share:.4%}; bound {KNIFE_EDGE_SHARE:.2%}) -> "
+          f"{'ok' if share <= KNIFE_EDGE_SHARE else 'FAIL'}", flush=True)
+    if share > KNIFE_EDGE_SHARE:
+        fail("the clustered MRT differs from the sparse MRT beyond the knife-edge share")
+    launches["clustered"] = counts
+    del e, frames, mrt_c, mrt_s, buffers, mrt_args
+    torch.cuda.empty_cache()
+
+    # (c) the rasterizer on both schemes, 960 x 540 --------------------------
+    raster_config = Config()
+    e = engine(w2, h2)
+    e.config = raster_config
+    e.renderer.scheme = "kernel"
+    ref = tools.drive_frames("raster-mxu-reference, scheme 'kernel'", e.renderer, n)[0]
+    e = engine(w2, h2)
+    e.config = raster_config
+    e.renderer.scheme = "mxu"
+    layers = e.renderer.resolved_layers()
+    frames, counts, frame_ms, peak = tools.drive_frames("raster-mxu", e.renderer, n)
+    tools.expect_launches("the rasterizer on scheme='mxu'", counts, n, dict(off, fxaa=1))
+    differ = sum(int((a != b).any(axis=-1).sum()) for a, b in zip(frames, ref))
+    print(f"[raster-mxu] theater {w2}x{h2}, {layers} layers: against the scheme 'kernel' "
+          f"frames: tolerance: identical; {differ} pixels differ -> "
+          f"{'ok' if differ == 0 else 'FAIL'}", flush=True)
+    if differ:
+        fail("the rasterizer on scheme='mxu' renders other frames than on 'kernel'")
+    busy_line(f"rasterizer-mxu-theater-{h2}p", e.renderer, frame_ms, peak)
+    launches["raster_mxu"] = counts
+    e, _ = tools.dragon_direct(w2, h2, raster_config, renderer="rasterizer")
+    e.renderer.scheme = "sparse"
+    ref = tools.drive_frames("raster-clustered-reference, scheme 'sparse'", e.renderer, 1)[0]
+    e.renderer.scheme = "clustered"
+    layers = e.renderer.resolved_layers()
+    frames, counts, frame_ms, peak = tools.drive_frames("raster-clustered", e.renderer, 1)
+    tools.expect_launches("the rasterizer on scheme='clustered'", counts, 1, dict(off, fxaa=1))
+    differ = int((frames[0] != ref[0]).any(axis=-1).sum())
+    share = differ / (w2 * h2)
+    print(f"[raster-clustered] dragon stand-in {w2}x{h2}, {layers} layers: against the "
+          f"scheme 'sparse' frame: {differ} pixels differ ({share:.4%}; bound "
+          f"{KNIFE_EDGE_SHARE:.2%}) -> {'ok' if share <= KNIFE_EDGE_SHARE else 'FAIL'}",
+          flush=True)
+    if share > KNIFE_EDGE_SHARE:
+        fail("the rasterizer on scheme='clustered' differs from 'sparse' beyond the bound")
+    busy_line(f"rasterizer-clustered-dragon-{h2}p", e.renderer, frame_ms, peak, n_profiled=1)
+    launches["raster_clustered"] = counts
+    del e, frames, ref
+    torch.cuda.empty_cache()
+
+    # (d)-(f) two ranks on this card over a gloo mesh ------------------------
+    n_ranks_frames = 3
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke",
+                           "ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t = time.perf_counter()
+    try:
+        mp.start_processes(rank_main, args=(out_dir, w, h, args.seed, n_ranks_frames),
+                           nprocs=2, start_method="spawn")
+    except Exception as exc:  # a rank's failure fails the run
+        fail(f"a rank failed: {exc}")
+    spawn_s = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the one-process frames of the same seeds and states
+    e = engine(w, h)
+    config = e.config
+    buffers = build_scene_buffers(e.scene, dev)
+    pos, view = e.camera.position, e.camera.view_matrix(w, h)
+    temporal = TemporalState.create(config.temporal_samples, h, w, dev)
+    taa = taa_history(config.antialiasing, h, w, dev)
+    one, one_ms = [], []
+    for f in range(n_ranks_frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        display, temporal, taa = frame_pipeline(buffers, pos, view,
+                                                float(f % config.temporal_samples), temporal,
+                                                taa, w, h, config, KERNELS,
+                                                scheme="fused_split")
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1000.0)
+        one.append(display.cpu())
+    # identical, the blur key of the tile row that straddles the strip
+    # border (rows 512-543 of 32-row tiles, summed from the strips' partial
+    # sums) included: 0 pixels differed on the H100 in every run so far
+    halo = ranks[0]["halo"]
+    differ = [[int((got != want).any(dim=-1).sum()) for got, want in
+               zip(ranks[r]["displays"], one)] for r in range(2)]
+    same = not any(map(any, differ))
+    print(f"[ranks] tile 2 (two {h // 2}-row strips, halo {halo}), frame_pipeline_sharded_halo on "
+          f"theater {w}x{h}, headline config, {n_ranks_frames} frames, against the one-process "
+          f"frames of the same seeds and states: tolerance: identical; pixels that differ, "
+          f"rank 0 {differ[0]}, rank 1 {differ[1]} -> {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail("a sharded display differs from the one-process display")
+    a_frame = {"sp_pre": 1, "sp_post": 5, "first_blur": 3, "second_blur": 3, "final_blur": 1,
+               "fxaa": 1}
+    for r in range(2):
+        per_frame = {k: c / n_ranks_frames for k, c in ranks[r]["launches"].items()}
+        print(f"[ranks] rank {r}'s launches a frame {per_frame} (expected {a_frame}) -> "
+              f"{'ok' if per_frame == a_frame else 'FAIL'}", flush=True)
+        if per_frame != a_frame:
+            fail(f"rank {r} did not launch the one-process frame's kernels")
+    print(f"[ranks] frame ms, two ranks sharing one card, not a scaling number: sharded "
+          f"rank 0 {[round(x, 1) for x in ranks[0]['frame_ms']]}, rank 1 "
+          f"{[round(x, 1) for x in ranks[1]['frame_ms']]}; one process "
+          f"{[round(x, 1) for x in one_ms]} (the spawn, both ranks' start-up included, "
+          f"{spawn_s:.1f} s) | {smi}", flush=True)
+    tools.paths[f"ranks-theater-{h}p-halo"] = {"sharded_ms": ranks[0]["frame_ms"],
+                                               "one_process_ms": one_ms,
+                                               "note": "two ranks sharing one card"}
+
+    # (e) the sample-sharded MRT against one process's
+    cfg2 = config.replace(samples_per_ray=2)
+    ref_mrt = render_mrt(buffers, w, h, pos, view, cfg2, 0.0, scheme="fused_split",
+                         kernels=KERNELS)
+    for r in range(2):
+        got = ranks[r]["mrt"]
+        cerr = float((got[0] - ref_mrt.color.cpu()).abs().max())
+        others = {f: int((a != b.cpu()).sum()) for f, a, b in
+                  zip(ref_mrt._fields[1:], got[1:], ref_mrt[1:])}
+        ok = cerr <= 1e-4 and not any(others.values())
+        print(f"[ranks] rank {r}: tile 1 x sample 2, render_mrt_sharded at 2 spp against "
+              f"the one-process MRT: colour max abs {cerr:.3g} (tolerance 1e-4), other "
+              f"channels' differing values {others} (tolerance: identical) -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the sample-sharded MRT differs from the one-process MRT")
+    # (f) the scene broadcast
+    local = _digest(buffers)
+    same = ranks[0]["digest"] == ranks[1]["digest"] == local
+    print(f"[ranks] broadcast_scene: rank 1 started from zeros ({ranks[1]['zeros_before']}), "
+          f"both ranks hold identical buffers, equal to this process's: {same}; leaders "
+          f"{[x['is_leader'] for x in ranks]} -> {'ok' if same else 'FAIL'}", flush=True)
+    if not same or not ranks[1]["zeros_before"] or [x["is_leader"] for x in ranks] != [True,
+                                                                                          False]:
+        fail("broadcast_scene did not give both ranks the leader's buffers")
+    launches["ranks"] = ranks[0]["launches"]
+    del e, buffers, temporal, taa, ref_mrt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -880,6 +1258,109 @@ def drive(args, dev, smi: str) -> int:
     traversal = ("closest_hit", "any_hit")
     disc_names = ("first_blur", "second_blur", "final_blur")
 
+    # ---- the frames of phases 4-11, through the user's entry points ---------
+    # every kernel wrapper with its count: the KernelSet's and the lists of
+    # POST (and shade) and of interp_shade
+    counted = list(zip(KernelSet._fields, KERNELS)) + [("sp_live_list", SK.sp_live_list),
+                                                       ("alive_list", HK.alive_list)]
+
+    def drive_frames(label, renderer, n_frames, step=None):
+        """render_frame() n_frames times with every count set to 0 just
+        before; (frames, launches of the run)."""
+        for _, k in counted:
+            k.launches = 0
+        frames, frame_ms = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_frames):
+            if step is not None:
+                step(i)
+            t = time.perf_counter()
+            frames.append(renderer.render_frame())
+            frame_ms.append((time.perf_counter() - t) * 1000.0)
+        counts = {name: k.launches for name, k in counted}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{label}] {n_frames} frames, scheme {renderer.metrics.last['scheme']!r}, "
+              f"shade_kernel {getattr(renderer, 'shade_kernel', None)}: ms per frame "
+              f"{[round(x, 1) for x in frame_ms]} (median of frames 2..: "
+              f"{statistics.median(frame_ms[1:] or frame_ms):.1f} ms); peak device memory "
+              f"{peak_gb:.2f} GiB; launches per frame "
+              f"{ {n: c / n_frames for n, c in counts.items() if c} }", flush=True)
+        return frames, counts, frame_ms, peak_gb
+
+    def expect_launches(label, counts, n_frames, expect):
+        """Fail unless each kernel of `expect` ran its count per frame."""
+        wrong = {name: counts[name] / n_frames for name, c in expect.items()
+                 if counts[name] != c * n_frames}
+        if wrong:
+            fail(f"{label}: launches per frame {wrong}, expected {expect}")
+
+    def check_frames(label, frames, plain_frames, shape):
+        """The last frame's shape, finite values and light; each frame
+        within the golden budget of its plain frame."""
+        last = frames[-1]
+        if last.shape != shape:
+            fail(f"{label}: frame shape {last.shape}")
+        if not np.isfinite(last).all():
+            fail(f"{label}: frame has non-finite values")
+        if float(last.max()) <= 0.0:
+            fail(f"{label}: frame is all black")
+        for i, (a, b) in enumerate(zip(frames, plain_frames)):
+            frac, mx = golden_budget(torch.from_numpy(a), b)
+            print(f"[{label}] frame {i}: kernels vs plain: {frac:.4%} of values over 2e-3, "
+                  f"max {mx:.4f} (budget 1%, 0.5)", flush=True)
+            if frac > 0.01 or mx > 0.5:
+                fail(f"{label}: kernel frame outside the golden budget of the plain frame")
+        print(f"[{label}] output {list(last.shape)}, mean {float(last.mean()):.4f}, finite",
+              flush=True)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    paths = {}
+
+    def device_busy(label, renderer, frame_ms, peak_gb, step=None, n_profiled=2):
+        """Device ms a frame (torch.profiler: the sum of the device time of
+        every kernel over n_profiled more frames of the renderer's
+        _render_device(), as tools/profile_frame.py takes it) beside the
+        median host ms of the counted frames and their peak memory."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n_profiled):
+                if step is not None:
+                    step(100 + i)
+                renderer._render_device()
+            torch.cuda.synchronize()
+        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA) / 1000.0 / n_profiled
+        if busy <= 0.0:
+            fail(f"{label}: the profiler recorded no device time")
+        med = statistics.median(frame_ms[1:] or frame_ms)
+        paths[label] = {"frame_ms_median": med, "frame_ms": frame_ms, "device_busy_ms": busy,
+                        "idle_share": 1.0 - busy / med, "peak_gib": peak_gb}
+        print(f"[{label}] median frame {med:.1f} ms (frames 2..), device busy {busy:.3f} ms a "
+              f"frame (torch.profiler, {n_profiled} frames), idle share {1.0 - busy / med:.3f}, "
+              f"peak device memory {peak_gb:.2f} GiB", flush=True)
+
+    def expect_identical(label, frames, plain_frames):
+        """The kernels are bit-exact with their plain versions, so each frame
+        must equal its plain frame value for value, beside the golden
+        budget that check_frames holds it to."""
+        count = sum(int((torch.from_numpy(a) != b).sum()) for a, b in zip(frames, plain_frames))
+        print(f"[{label}] kernels vs plain frames: tolerance: identical; {count} values differ "
+              f"-> {'ok' if count == 0 else 'FAIL'}", flush=True)
+        if count:
+            fail(f"{label}: {count} values differ from the plain frames")
+
+    def dragon_direct(width, height, cfg, renderer="pathtracer"):
+        """The dragon stand-in with `cfg` on `renderer`; (engine, animate)."""
+        e, animate = dragon_engine(width, height)
+        e.config = cfg
+        e.renderer = renderer
+        return e, animate
+
+    tools = types.SimpleNamespace(drive_frames=drive_frames, expect_launches=expect_launches,
+                                  device_busy=device_busy, dragon_direct=dragon_direct,
+                                  counted=counted, paths=paths)
     # ---- 3. kernels vs plain --------------------------------------------
     t0 = time.perf_counter()
 
@@ -1844,61 +2325,6 @@ def drive(args, dev, smi: str) -> int:
     torch.cuda.empty_cache()
     print(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- the frames of phases 4-7, through the user's entry points ----------
-    # every kernel wrapper with its count: the KernelSet's and the lists of
-    # POST (and shade) and of interp_shade
-    counted = list(zip(KernelSet._fields, KERNELS)) + [("sp_live_list", SK.sp_live_list),
-                                                       ("alive_list", HK.alive_list)]
-
-    def drive_frames(label, renderer, n_frames, step=None):
-        """render_frame() n_frames times with every count set to 0 just
-        before; (frames, launches of the run)."""
-        for _, k in counted:
-            k.launches = 0
-        frames, frame_ms = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(n_frames):
-            if step is not None:
-                step(i)
-            t = time.perf_counter()
-            frames.append(renderer.render_frame())
-            frame_ms.append((time.perf_counter() - t) * 1000.0)
-        counts = {name: k.launches for name, k in counted}
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[{label}] {n_frames} frames, scheme {renderer.metrics.last['scheme']!r}, "
-              f"shade_kernel {getattr(renderer, 'shade_kernel', None)}: ms per frame "
-              f"{[round(x, 1) for x in frame_ms]} (median of frames 2..: "
-              f"{statistics.median(frame_ms[1:] or frame_ms):.1f} ms); peak device memory "
-              f"{peak_gb:.2f} GiB; launches per frame "
-              f"{ {n: c / n_frames for n, c in counts.items() if c} }", flush=True)
-        return frames, counts, frame_ms, peak_gb
-
-    def expect_launches(label, counts, n_frames, expect):
-        """Fail unless each kernel of `expect` ran its count per frame."""
-        wrong = {name: counts[name] / n_frames for name, c in expect.items()
-                 if counts[name] != c * n_frames}
-        if wrong:
-            fail(f"{label}: launches per frame {wrong}, expected {expect}")
-
-    def check_frames(label, frames, plain_frames, shape):
-        """The last frame's shape, finite values and light; each frame
-        within the golden budget of its plain frame."""
-        last = frames[-1]
-        if last.shape != shape:
-            fail(f"{label}: frame shape {last.shape}")
-        if not np.isfinite(last).all():
-            fail(f"{label}: frame has non-finite values")
-        if float(last.max()) <= 0.0:
-            fail(f"{label}: frame is all black")
-        for i, (a, b) in enumerate(zip(frames, plain_frames)):
-            frac, mx = golden_budget(torch.from_numpy(a), b)
-            print(f"[{label}] frame {i}: kernels vs plain: {frac:.4%} of values over 2e-3, "
-                  f"max {mx:.4f} (budget 1%, 0.5)", flush=True)
-            if frac > 0.01 or mx > 0.5:
-                fail(f"{label}: kernel frame outside the golden budget of the plain frame")
-        print(f"[{label}] output {list(last.shape)}, mean {float(last.mean()):.4f}, finite",
-              flush=True)
-
     # ---- 4. the main path through the user's entry points ---------------
     t0 = time.perf_counter()
     e = engine(w, h)
@@ -2062,47 +2488,9 @@ def drive(args, dev, smi: str) -> int:
 
     # ---- 9. the rasterizer, the TAA frame and the simple renderer -------------
     t0 = time.perf_counter()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from flexlight_tpu_torch.models.rasterizer import Rasterizer
-
     raster_config = Config()          # the engine's defaults: FXAA, hdr
     taa_config = config.replace(antialiasing="taa")
-    paths = {}
-
-    def device_busy(label, renderer, frame_ms, peak_gb, step=None, n_profiled=2):
-        """Device ms a frame (torch.profiler: the sum of the device time of
-        every kernel over n_profiled more frames of the renderer's
-        _render_device(), as tools/profile_frame.py takes it) beside the
-        median host ms of the counted frames and their peak memory."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(n_profiled):
-                if step is not None:
-                    step(100 + i)
-                renderer._render_device()
-            torch.cuda.synchronize()
-        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA) / 1000.0 / n_profiled
-        if busy <= 0.0:
-            fail(f"{label}: the profiler recorded no device time")
-        med = statistics.median(frame_ms[1:] or frame_ms)
-        paths[label] = {"frame_ms_median": med, "frame_ms": frame_ms, "device_busy_ms": busy,
-                        "idle_share": 1.0 - busy / med, "peak_gib": peak_gb}
-        print(f"[{label}] median frame {med:.1f} ms (frames 2..), device busy {busy:.3f} ms a "
-              f"frame (torch.profiler, {n_profiled} frames), idle share {1.0 - busy / med:.3f}, "
-              f"peak device memory {peak_gb:.2f} GiB", flush=True)
-
-    def expect_identical(label, frames, plain_frames):
-        """The kernels are bit-exact with their plain versions, so each frame
-        must equal its plain frame value for value, beside the golden
-        budget that check_frames holds it to."""
-        count = sum(int((torch.from_numpy(a) != b).sum()) for a, b in zip(frames, plain_frames))
-        print(f"[{label}] kernels vs plain frames: tolerance: identical; {count} values differ "
-              f"-> {'ok' if count == 0 else 'FAIL'}", flush=True)
-        if count:
-            fail(f"{label}: {count} values differ from the plain frames")
 
     # (a) the rasterizer with its defaults on theater at full size
     e = engine(w, h)
@@ -2198,6 +2586,7 @@ def drive(args, dev, smi: str) -> int:
     del frames, e
     torch.cuda.empty_cache()
     print(f"[paths] {json.dumps(paths)}", flush=True)
+    printed_paths = set(paths)
     print(f"[phase] rasterizer, TAA and simple paths: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -2205,6 +2594,13 @@ def drive(args, dev, smi: str) -> int:
     t0 = time.perf_counter()
     serve_launches = serve_phase(args, dev, engine, counted, device_busy, paths)
     print(f"[phase] serve: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 11. the mxu and clustered casts, two ranks on the card --------------
+    t0 = time.perf_counter()
+    slice_launches = casts_and_ranks_phase(args, dev, smi, engine, dragon_engine, tools)
+    print(f"[paths] {json.dumps({k: v for k, v in paths.items() if k not in printed_paths})}",
+          flush=True)
+    print(f"[phase] mxu, clustered and ranks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     loaded = sorted(m for m in sys.modules if m in ("jax", "flexlight_tpu")
                     or m.startswith(("jax.", "jaxlib", "flexlight_tpu.")))
@@ -2226,9 +2622,12 @@ def drive(args, dev, smi: str) -> int:
         raster = {f"raster_{tag}_launches": c[name] for tag, c in
                   (("theater", raster_launches), ("dragon", raster_sparse_launches))
                   if c[name]}
-        # and the frame server's (phase 10 (b))
+        # and the frame server's (phase 10 (b)), and phase 11's paths
         if serve_launches[name]:
             raster["serve_launches"] = serve_launches[name]
+        for tag, c in slice_launches.items():
+            if c.get(name):
+                raster[f"{tag}_launches"] = c[name]
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": launches[name],
                         **results[name], **raster})

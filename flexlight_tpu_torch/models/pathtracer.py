@@ -14,8 +14,9 @@ PRE / POST kernels (scheme="fused_split"), the whole-frame kernel
 scenes (scheme="sparse": tile flags, nearest2 sort key, closest hit, any
 hit), and the filter and FXAA kernels either way; scheme="scan" and
 "packet", flexlight_tpu's own casts in plain XLA, cast in plain PyTorch
-(ops.traverse). TAA (antialiasing="taa", post.taa) is plain PyTorch, as
-in flexlight_tpu. With the renderer's
+(ops.traverse), and so do its CPU routes scheme="mxu" and "clustered"
+(ops.traverse_mxu, ops.traverse_clustered). TAA (antialiasing="taa",
+post.taa) is plain PyTorch, as in flexlight_tpu. With the renderer's
 `shade_kernel` switch on (off by default, as in flexlight_tpu), the
 kernel and sparse schemes shade each bounce in one kernel: interp_shade
 on scenes without textures (1x1 atlases), else shade.
@@ -23,6 +24,7 @@ on scenes without textures (1x1 atlases), else shade.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -92,12 +94,27 @@ def _quantized_mrt(mrt, height: int, width: int):
 
 
 def _filter_chain_packed(config: Config, r0, ip0, oc0, id0, oid,
-                         kernels: KernelSet = KERNELS):
+                         kernels: KernelSet = KERNELS, lift=None, tileize=None):
     """The first/second/final filter ping-pong on packed int32 [H, W]
     planes, index-exact to pathtracerWGL2.js:462-549: the first two
     second-pass originalColor writes land on a nonexistent attachment and
-    are dropped, so the second second-pass reads a zero originalColor."""
-    key_fn = tileize_blur_key_packed if config.filter_mode == "fast" else (lambda x: x)
+    are dropped, so the second second-pass reads a zero originalColor.
+
+    `lift` wraps each pass (the halo-sharded pipeline exchanges halo rows
+    around it, parallel.halo.with_halo; flexlight_tpu lifts its float
+    chain, models/pathtracer.py:149-165, and packing is lossless, so the
+    values are the same). `tileize` is the fast mode's blur-key quantizer
+    on a packed plane (default post.filter_kernel.tileize_blur_key_packed;
+    the sharded pipeline passes its all-reduce form,
+    parallel.tile_sharding.tileize_blur_key_sharded)."""
+    lift = (lambda f: f) if lift is None else lift
+    if config.filter_mode == "fast":
+        key_fn = tileize_blur_key_packed if tileize is None else tileize
+    else:
+        key_fn = lambda x: x  # noqa: E731
+    first_fn = lift(partial(first_filter_packed, blur=kernels.first_blur))
+    second_fn = lift(partial(second_filter_packed, blur=kernels.second_blur))
+    final_fn = lift(partial(final_filter_packed, hdr=config.hdr, blur=kernels.final_blur))
     r0p, ip0p, oc0p, id0p, oidp = (pack_rgba8(x) for x in (r0, ip0, oc0, id0, oid))
     zeros = torch.zeros_like(r0p)
     render = {0: r0p, 1: zeros, 2: zeros, 3: zeros}
@@ -113,11 +130,11 @@ def _filter_chain_packed(config: Config, r0, ip0, oc0, id0, oid,
             np_ += 2
         inputs = (render[n], ip[n], ocolor[n_original], ids[n_id], oidp)
         if i < first:
-            c, p, idout = first_filter_packed(*inputs, blur=kernels.first_blur)
+            c, p, idout = first_fn(*inputs)
             render[np_], ip[np_] = c, p
             ids[np_] = idout
         else:
-            c, p, oc = second_filter_packed(*inputs, blur=kernels.second_blur)
+            c, p, oc = second_fn(*inputs)
             render[np_], ip[np_] = c, p
             if i - 2 >= first:
                 ocolor[npo] = key_fn(oc)  # earlier second passes: dropped
@@ -127,9 +144,7 @@ def _filter_chain_packed(config: Config, r0, ip0, oc0, id0, oid,
         else:
             n_id = np_
     index = 2 + (first + second) % 2
-    return final_filter_packed(render[index], ip[index], ocolor[second % 2],
-                               ids[first % 2], oidp, config.hdr,
-                               blur=kernels.final_blur)
+    return final_fn(render[index], ip[index], ocolor[second % 2], ids[first % 2], oidp)
 
 
 def postprocess_mrt(mrt, temporal_state: TemporalState, taa_state: TAAState | None,
@@ -191,7 +206,7 @@ class PathTracer(Renderer):
     # from this many triangles on, "auto" takes the sparse worklist casts
     # (flexlight_tpu/models/pathtracer.py:342)
     SPARSE_MIN_TRIS = 4096
-    SCHEMES = ("kernel", "fused_split", "fused", "sparse", "scan", "packet")
+    SCHEMES = ("kernel", "fused_split", "fused", "sparse", "scan", "packet", "mxu", "clustered")
 
     def __init__(self, width, height, scene, camera, config, device,
                  scheme: str = "auto", kernels: KernelSet = KERNELS,
@@ -218,9 +233,10 @@ class PathTracer(Renderer):
         chip (models/pathtracer.py:344-371) on every device: below
         SPARSE_MIN_TRIS triangles "fused_split" for scenes within its caps
         (<= 1024 triangles, <= 256 lights), else "kernel"; "sparse" from
-        SPARSE_MIN_TRIS on. As in flexlight_tpu, "auto" never picks
-        "fused", "scan" or "packet": a caller asks for them. "mxu" and
-        "clustered" are not ported and raise."""
+        SPARSE_MIN_TRIS on. As in flexlight_tpu on a chip, "auto" never
+        picks "fused", "scan", "packet", "mxu" or "clustered": a caller
+        asks for them (flexlight_tpu's CPU branch to mxu / clustered is
+        left behind, ROADMAP.md)."""
         if self.scheme == "auto":
             if self._buffers is None:
                 self.update_scene()
@@ -229,8 +245,8 @@ class PathTracer(Renderer):
             return "fused_split" if fused_split_eligible(self._buffers) else "kernel"
         if self.scheme in self.SCHEMES:
             return self.scheme
-        raise NotImplementedError(
-            f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown scheme {self.scheme!r}; the path tracer takes 'auto' or "
+                         f"one of {self.SCHEMES}")
 
     def render(self):
         """Prepare buffers and state; frames then come from render_frame()."""

@@ -10,9 +10,11 @@ kernels (ops.intersect_kernel, through a KernelSet as the path tracer's),
 "sparse" the worklist casts of ops.intersect_sparse (unsorted: the
 rasterizer's casts carry no hint, so the flags, closest- and any-hit
 kernels run and the sort key never does), "scan" and "packet" the plain
-casts of ops.traverse. "auto" takes flexlight_tpu's rule on a chip on
-every device: "sparse" from 4096 triangles, else "kernel". "mxu" and
-"clustered" are not ported.
+casts of ops.traverse, "mxu" and "clustered" those of ops.traverse_mxu and
+ops.traverse_clustered (the primaries with the relaxed edge -BIAS, as
+flexlight_tpu/models/rasterizer.py:147-153, 193-199 wires them). "auto"
+takes flexlight_tpu's rule on a chip on every device: "sparse" from 4096
+triangles, else "kernel".
 
 Reference quirks kept: forwardTrace gets the light vector from the local
 (untransformed) position and the view vector camera - localPosition
@@ -153,7 +155,7 @@ def _casts(scheme: str, buffers, world_geom, kernels: KernelSet, tile: int):
     coverage), so it takes the relaxed edge window -BIAS; the worklist
     casts' drawable indices are mapped to the slots the shading reads."""
     if scheme not in Rasterizer.SCHEMES:
-        raise NotImplementedError(f"scheme={scheme!r} is not ported yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown scheme {scheme!r}; the rasterizer takes {Rasterizer.SCHEMES}")
     traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 
     def traverse_fn(o, d):
@@ -228,7 +230,7 @@ class Rasterizer(Renderer):
     # from this many triangles on, "auto" takes the sparse worklist casts
     # (flexlight_tpu/models/rasterizer.py:367)
     SPARSE_MIN_TRIS = 4096
-    SCHEMES = ("kernel", "sparse", "scan", "packet")
+    SCHEMES = ("kernel", "sparse", "scan", "packet", "mxu", "clustered")
 
     def __init__(self, width, height, scene, camera, config, device, scheme: str = "auto",
                  tile: int = 1024, kernels: KernelSet = KERNELS):
@@ -252,7 +254,8 @@ class Rasterizer(Renderer):
     def resolved_scheme(self) -> str:
         """The scheme a frame runs: "auto" is "sparse" from SPARSE_MIN_TRIS
         triangles on, else "kernel" (flexlight_tpu's rule on a chip, here
-        on every device); "mxu" and "clustered" raise."""
+        on every device; its CPU branch to mxu / clustered is left
+        behind); any other scheme is a caller's choice."""
         if self.scheme == "auto":
             if self._buffers is None:
                 self.update_scene()
@@ -260,8 +263,8 @@ class Rasterizer(Renderer):
                 else "kernel"
         if self.scheme in self.SCHEMES:
             return self.scheme
-        raise NotImplementedError(
-            f"scheme={self.scheme!r} is not ported yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown scheme {self.scheme!r}; the rasterizer takes 'auto' or one "
+                         f"of {self.SCHEMES}")
 
     def resolved_layers(self) -> int:
         if self._buffers is None:

@@ -45,7 +45,7 @@ from .buffers import AtlasTable, SceneBuffers
 from .geometry import world_geometry
 from .intersect import BIAS, POW32
 from .intersect_kernel import any_hit_plain, build_w4, closest_hit_plain
-from .pathtrace import (MRT, BounceCarry, BounceSurface, assemble_mrt, bounce_apply,
+from .pathtrace import (BounceCarry, BounceSurface, assemble_mrt, bounce_apply,
                         bounce_carry_init, bounce_commit, bounce_pre, bounce_shade,
                         bounce_tex, build_material_table, camera_rays, inverse_view,
                         sample_cos, upload)
@@ -255,11 +255,14 @@ def split_frame(dirs, ndc, w4, ids, mat, lights, ambient, atlases, cam, seed, co
     """The samples of one frame through `pre`, bounce_tex and `post`
     around one state block, the ambient epilogue and the sample sum
     (light_trace's order): the [FR_C, N] frame block. `atlases` has the
-    three AtlasTables, `cos_samples[s]` is sample s's noise phase."""
+    three AtlasTables; the frame runs one sample for each phase of
+    `cos_samples` (the whole loop, or a slice of it: render_mrt's
+    sample_offset / local_samples), and scales their sum by
+    1 / config.samples_per_ray."""
     n = dirs.shape[1]
     state = torch.empty((SP_C, n), dtype=torch.float32, device=dirs.device)
     total = None
-    for s in range(config.samples_per_ray):
+    for s in range(len(cos_samples)):
         state = pre(state, dirs, w4, ids, mat, cam, s > 0, config)
         for i in range(config.max_reflections):
             tex = tex_block(atlases, state)
@@ -281,41 +284,57 @@ def fused_frame_plain(dirs, ndc, w4, ids, mat, lights, ambient, albedo_tab, pbr_
     frame block [FR_C, N] of the camera rays (origin `cam` [3], directions
     `dirs` [3, N], pixel NDC `ndc` [2, N]) over the scene's W / ids /
     material table, lights [L, 2, 3], ambient [3] and atlas tables, with
-    the 0-d `seed` and the samples' phases `cos_samples` [spp]: the
-    fused_split frame with PRE and POST's plain versions."""
+    the 0-d `seed` and the phases `cos_samples` [S] of the S samples it
+    runs (S = spp, or a slice's count): the fused_split frame with PRE and
+    POST's plain versions."""
     return split_frame(dirs, ndc, w4, ids, mat, lights, ambient,
                        _Atlases(albedo_tab, pbr_tab, tpo_tab), cam, seed, cos_samples, config,
                        sp_pre_plain, sp_post_plain)
 
 
-def frame_inputs(buffers: SceneBuffers, width: int, height: int, camera_pos, view_matrix):
-    """(cam, dirs [3, N], ndc [2, N], w4, ids, material table) of a frame."""
+def frame_inputs(buffers: SceneBuffers, width: int, height: int, camera_pos, view_matrix,
+                 row0: int = 0, rows: int | None = None):
+    """(cam, dirs [3, N], ndc [2, N], w4, ids, material table) of a frame,
+    or of its strip of `rows` rows from `row0` (N = rows * W)."""
     dev = buffers.geometry.device
     cam = upload(camera_pos, dev)
     inv_view = upload(inverse_view(view_matrix), dev)
     world_geom = world_geometry(buffers)
     w4, ids = build_w4(world_geom, buffers.id_buffer)
     mat = build_material_table(buffers, world_geom).contiguous()
-    _, direction3, ndc2 = camera_rays(width, height, cam, inv_view)
+    _, direction3, ndc2 = camera_rays(width, height, cam, inv_view, row0, rows)
     return cam, torch.stack(direction3), torch.stack(ndc2), w4, ids, mat
 
 
-def mrt_from_block(buffers: SceneBuffers, cam, block) -> MRT:
-    """The MRT of a frame block (assemble_mrt)."""
+def _phases(config, sample_offset: int, local_samples: int | None) -> list:
+    """The noise phases of the samples a frame (or its slice) runs."""
+    n = config.samples_per_ray if local_samples is None else local_samples
+    return [sample_cos(sample_offset + j) for j in range(n)]
+
+
+def mrt_from_block(buffers: SceneBuffers, cam, block, with_raw_aux: bool = False):
+    """The MRT of a frame block (assemble_mrt); with `with_raw_aux`,
+    (MRT, (original_rme_x, first_ray_length)) as render_mrt returns it."""
     aux = (tuple(block[FR_RENDER_ID + k] for k in range(4)), block[FR_GLASS],
            block[FR_RME_X], block[FR_TPO_X], block[FR_FIRST_RAY_LENGTH])
     ptri = block[FR_PPART + 3].to(torch.int32)
-    return assemble_mrt(buffers, cam, (block[FR_PPART + 1], block[FR_PPART + 2], ptri),
-                        tuple(block[FR_COLOR:FR_COLOR + 3]),
-                        tuple(block[FR_ORIGINAL_COLOR:FR_ORIGINAL_COLOR + 3]), aux)
+    mrt = assemble_mrt(buffers, cam, (block[FR_PPART + 1], block[FR_PPART + 2], ptri),
+                       tuple(block[FR_COLOR:FR_COLOR + 3]),
+                       tuple(block[FR_ORIGINAL_COLOR:FR_ORIGINAL_COLOR + 3]), aux)
+    if with_raw_aux:
+        return mrt, (block[FR_RME_X], block[FR_FIRST_RAY_LENGTH])
+    return mrt
 
 
 def render_mrt_fused_split(buffers: SceneBuffers, width: int, height: int,
                            camera_pos, view_matrix, config, random_seed,
-                           kernels=None) -> MRT:
+                           kernels=None, row0: int = 0, rows: int | None = None,
+                           sample_offset: int = 0, local_samples: int | None = None,
+                           with_raw_aux: bool = False):
     """ops.pathtrace.render_mrt(scheme="fused_split"): the same MRT as
-    flexlight_tpu's render_mrt_fused_split. `kernels` has `sp_pre` and
-    `sp_post` (default: ops.fused_kernel's CUDA kernel wrappers)."""
+    flexlight_tpu's render_mrt_fused_split, with render_mrt's strip and
+    sample-slice arguments. `kernels` has `sp_pre` and `sp_post` (default:
+    ops.fused_kernel's CUDA kernel wrappers)."""
     if not fused_split_eligible(buffers):
         raise ValueError(f"scene too large for scheme='fused_split' "
                          f"({buffers.id_buffer.shape[0]} triangles, "
@@ -324,20 +343,22 @@ def render_mrt_fused_split(buffers: SceneBuffers, width: int, height: int,
         from . import fused_kernel as kernels
 
     cam, dirs, ndc, w4, ids, mat = frame_inputs(buffers, width, height, camera_pos,
-                                                 view_matrix)
-    cos_samples = [sample_cos(s) for s in range(config.samples_per_ray)]
+                                                 view_matrix, row0, rows)
     block = split_frame(dirs, ndc, w4, ids, mat, buffers.lights.contiguous(), buffers.ambient,
-                        buffers, cam, float(random_seed), cos_samples, config,
+                        buffers, cam, float(random_seed),
+                        _phases(config, sample_offset, local_samples), config,
                         kernels.sp_pre, kernels.sp_post)
-    return mrt_from_block(buffers, cam, block)
+    return mrt_from_block(buffers, cam, block, with_raw_aux)
 
 
 def render_mrt_fused(buffers: SceneBuffers, width: int, height: int, camera_pos,
-                     view_matrix, config, random_seed, kernels=None) -> MRT:
-    """ops.pathtrace.render_mrt(scheme="fused"): the whole frame in one
-    launch of `kernels.fused_frame` (default: ops.fused_kernel's CUDA
-    kernel wrapper), the same MRT as scheme="fused_split". Raises on a
-    scene outside `fused_eligible`."""
+                     view_matrix, config, random_seed, kernels=None, row0: int = 0,
+                     rows: int | None = None, sample_offset: int = 0,
+                     local_samples: int | None = None, with_raw_aux: bool = False):
+    """ops.pathtrace.render_mrt(scheme="fused"): the whole frame (or its
+    strip and sample slice) in one launch of `kernels.fused_frame`
+    (default: ops.fused_kernel's CUDA kernel wrapper), the same MRT as
+    scheme="fused_split". Raises on a scene outside `fused_eligible`."""
     if not fused_eligible(buffers):
         texels = [a.shape[0] * a.shape[1]
                   for a in (buffers.albedo_atlas, buffers.pbr_atlas, buffers.tpo_atlas)]
@@ -349,11 +370,11 @@ def render_mrt_fused(buffers: SceneBuffers, width: int, height: int, camera_pos,
         from . import fused_kernel as kernels
 
     cam, dirs, ndc, w4, ids, mat = frame_inputs(buffers, width, height, camera_pos,
-                                                 view_matrix)
+                                                 view_matrix, row0, rows)
     dev = cam.device
     seed = upload(random_seed, dev)
-    cos_samples = upload([sample_cos(s) for s in range(config.samples_per_ray)], dev)
+    cos_samples = upload(_phases(config, sample_offset, local_samples), dev)
     block = kernels.fused_frame(dirs, ndc, w4, ids, mat, buffers.lights.contiguous(),
                                 buffers.ambient, buffers.albedo_tab, buffers.pbr_tab,
                                 buffers.tpo_tab, cam, seed, cos_samples, config)
-    return mrt_from_block(buffers, cam, block)
+    return mrt_from_block(buffers, cam, block, with_raw_aux)

@@ -103,11 +103,15 @@ def _fused_frame_launch(lib, stream, dirs, ndc, w4, ids, mat, lights, ambient, a
                         pbr_tab, tpo_tab, cam, seed, cos_samples, config, lane_stats=None):
     """`lane_stats`, an int32 [2] tensor on the device or None: the kernel
     adds its warps' lane-steps and the lane-steps that ran a bounce to it
-    (csrc/fused.cu)."""
+    (csrc/fused.cu). The kernel runs one sample for each phase of
+    `cos_samples` and scales their sum by 1 / config.samples_per_ray (a
+    sample slice runs fewer than spp)."""
     dev = dirs.device
     n = dirs.shape[1]
     tp = w4.shape[1]
-    spp = config.samples_per_ray
+    spp = cos_samples.shape[0] if cos_samples.ndim == 1 else -1
+    if spp < 1:
+        raise ValueError(f"cos_samples: expected [S] with S >= 1, got {tuple(cos_samples.shape)}")
     _native.require(dirs, "dirs", torch.float32, (3, n), dev)
     _native.require(ndc, "ndc", torch.float32, (2, n), dev)
     _native.require(w4, "w4", torch.float32, (4, tp, 16), dev)
@@ -132,7 +136,7 @@ def _fused_frame_launch(lib, stream, dirs, ndc, w4, ids, mat, lights, ambient, a
         _native.ptr(out), _native.ptr(dirs), _native.ptr(ndc), _native.ptr(w4), tp,
         _native.ptr(ids), _native.ptr(mat), _native.ptr(lights), n_lights,
         _native.ptr(ambient), *tables, _native.ptr(cam), _native.ptr(seed),
-        _native.ptr(cos_samples), spp, 1.0 / spp, config.max_reflections,
+        _native.ptr(cos_samples), spp, 1.0 / config.samples_per_ray, config.max_reflections,
         _RNG_MODES[config.rng], config.min_importancy * SQRT3, n, _native.ptr(ray_counter),
         None if lane_stats is None else _native.ptr(lane_stats), stream), "fused_frame")
     return out

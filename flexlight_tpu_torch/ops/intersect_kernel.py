@@ -4,12 +4,13 @@ kernel 1 of the port (csrc/intersect.cu).
 Moeller-Trumbore in the bilinear form of flexlight_tpu/ops/traverse_mxu.py:
 with the ray features f = [1, o, d, vec(d (x) o)], the four MT quantities
 (det, u*det, v*det, s*det) of every (ray, triangle) pair are dot products
-of f with constant per-triangle rows W[4, T, 16] (`tri_rows`).
-`closest_hit_plain` / `any_hit_plain` are that function as the
-[N, 16] @ [16, 4T] product (in k order) plus the accept window, chunked
-over rays. The CUDA kernels build each triangle's 16-float record from W
-in shared memory (its 25 non-zero terms, ops/intersect_sparse.py
-`tri_record`), sum those terms in W's k order and reject a pair exactly
+of f with constant per-triangle rows W[4, T, 16] (ops.traverse_mxu
+`tri_rows`). `closest_hit_plain` / `any_hit_plain` are that function as
+the [N, 16] @ [16, 4T] product in k order (ops.traverse_mxu
+`_mt_products`) plus the accept window, chunked over rays. The CUDA
+kernels build each triangle's 16-float record from W in shared memory
+(its 25 non-zero terms, ops/intersect_sparse.py `tri_record`), sum those
+terms in W's k order and reject a pair exactly
 before the division once det or a numerator's sign rules it out; the
 sums equal W's but for a zero's sign, which no accept decision reads, so
 the outputs are the plain versions'.
@@ -27,43 +28,7 @@ import torch
 
 from .. import _native
 from .intersect import BIAS, POW32
-
-
-def _cross(a, b):
-    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
-
-
-def _skew(v):
-    """Cross-product matrix rows, flattened: skew(a) @ b == cross(a, b)."""
-    zero = torch.zeros_like(v[:, 0])
-    return torch.stack([zero, -v[:, 2], v[:, 1],
-                        v[:, 2], zero, -v[:, 0],
-                        -v[:, 1], v[:, 0], zero], dim=-1)
-
-
-def tri_rows(world_geom: torch.Tensor, id_buffer: torch.Tensor):
-    """The four MT constant rows (det, udet, vdet, sdet), each [T, 16]."""
-    tris = world_geom[id_buffer.long()]
-    v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    n = _cross(e1, e2)
-    t = v0.shape[0]
-    z1 = torch.zeros((t, 1), dtype=torch.float32, device=v0.device)
-    z3 = torch.zeros((t, 3), dtype=torch.float32, device=v0.device)
-    z9 = torch.zeros((t, 9), dtype=torch.float32, device=v0.device)
-    # det = e1 . (d x e2) = -d . n
-    det = torch.cat([z1, z3, -n, z9], dim=-1)
-    # u*det = sum_ik d_i o_k skew(e2)[i,k] - d . cross(e2, v0)
-    udet = torch.cat([z1, z3, -_cross(e2, v0), _skew(e2)], dim=-1)
-    # v*det = -sum_ik d_i o_k skew(e1)[i,k] - d . cross(v0, e1)
-    vdet = torch.cat([z1, z3, -_cross(v0, e1), -_skew(e1)], dim=-1)
-    # s*det = o . n - v0 . n
-    v0n = v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2]
-    sdet = torch.cat([-v0n[:, None], n, z3, z9], dim=-1)
-    return det, udet, vdet, sdet
+from .traverse_mxu import _mt_products, tri_rows
 
 
 def build_w4(world_geom: torch.Tensor, id_buffer: torch.Tensor):
@@ -80,31 +45,6 @@ def _safe_dirs(d3):
     one = torch.ones_like(d3[0])
     return (torch.where(dead, zero, d3[0]), torch.where(dead, zero, d3[1]),
             torch.where(dead, one, d3[2]))
-
-
-def ray_features(o3, d3) -> torch.Tensor:
-    """f = [1, o, d, vec(d (x) o)] : [N, 16]."""
-    cols = [torch.ones_like(o3[0]), o3[0], o3[1], o3[2], d3[0], d3[1], d3[2]]
-    cols += [d3[c] * o3[k] for c in range(3) for k in range(3)]
-    return torch.stack(cols, dim=-1)
-
-
-def _mt_products(w4, o3, d3):
-    """det, udet, vdet, sdet, each [N, T]: the product F[N, 16] @ W[16, 4T],
-    taken as 16 rank-1 updates in k order, in plain float32 (no BLAS call,
-    so no TF32 either). A BLAS product sums in an order of its own, and the
-    bilinear form's s of a shadow ray leaving a surface lies within that
-    rounding of the BIAS accept edge; in k order every
-    product and sum rounds as in the kernel's dot products, so the two
-    agree bit for bit."""
-    t = w4.shape[1]
-    w = w4.permute(2, 1, 0).reshape(16, 4 * t)        # [16, 4T], column t*4+p
-    f = ray_features(o3, d3)
-    prod = f[:, 0, None] * w[0]
-    for k in range(1, 16):
-        prod = prod + f[:, k, None] * w[k]
-    prod = prod.reshape(-1, t, 4)
-    return prod[..., 0], prod[..., 1], prod[..., 2], prod[..., 3]
 
 
 def _chunks(n: int, t: int):

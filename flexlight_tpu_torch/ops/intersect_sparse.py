@@ -6,7 +6,7 @@ The triangles are cut into 128-triangle tiles in drawable (id_buffer)
 order, each with two 64-triangle cluster boxes. The casts read each
 triangle as a 16-float record (`tri_record`, 64 B; a tile is 8 KB): the
 16 distinct magnitudes of the four Moeller-Trumbore rows of
-ops.intersect_kernel.tri_rows, which hold 25 non-zero terms of 64:
+ops.traverse_mxu.tri_rows, which hold 25 non-zero terms of 64:
 
     [0:3]  n = e1 x e2      (det row: -n on d; sdet row: n on o)
     [3]    v0 . n           (sdet row: -v0.n on the constant 1)
@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .intersect import BIAS, POW32
-from .intersect_kernel import _cross
+from .traverse_mxu import _cross
 
 TRI_TILE = 128
 CLUSTER = 64
@@ -79,7 +79,7 @@ def _super_boxes(amin, amax, group: int = SUPER_GROUP):
 
 def tri_record(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> torch.Tensor:
     """[T, 16] f32: each drawable triangle's record (module docstring),
-    every value computed as ops.intersect_kernel.tri_rows computes it."""
+    every value computed as ops.traverse_mxu.tri_rows computes it."""
     tris = world_geom[id_buffer.long()]
     v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
     e1 = v1 - v0

@@ -133,7 +133,7 @@ def nearest2_key_plain(bmin, bmax, o3, d3, max_len):
 def record_products(q, o, d):
     """(det, udet, vdet, sdet) from the 16 record columns `q` and the ray's
     origin and direction components `o`, `d` (3 each), all broadcast
-    together: the non-zero terms of ops.intersect_kernel.tri_rows in
+    together: the non-zero terms of ops.traverse_mxu.tri_rows in
     ascending k, each negated term an exact negation or subtraction, in
     the kernel's order (csrc/sparse.cu fl_rec_*)."""
     n0, n1, n2, v0n, c0, c1, c2, g0, g1, g2, e2x, e2y, e2z, e1x, e1y, e1z = q

@@ -12,7 +12,9 @@ bounce_pre -> bounce_tex -> bounce_shade -> bounce_apply -> bounce_commit
 with the traversals in the closest-hit / any-hit kernels of
 ops.intersect_kernel, scheme="sparse" the same around the worklist casts
 of ops.intersect_sparse (large scenes), scheme="scan" / "packet" the same
-around the plain casts of ops.traverse; scheme="fused_split" (ops.fused)
+around the plain casts of ops.traverse, scheme="mxu" / "clustered" the
+same around the plain casts of ops.traverse_mxu / ops.traverse_clustered
+(flexlight_tpu's CPU routes); scheme="fused_split" (ops.fused)
 runs everything but bounce_tex in two fused kernels whose plain versions
 are built from the same stages, and scheme="fused" the whole frame in
 one kernel whose plain version is the fused_split frame. On the kernel
@@ -27,6 +29,7 @@ render target reads it.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -102,15 +105,21 @@ def upload(values, device) -> torch.Tensor:
 
 
 def camera_rays(width: int, height: int, position: torch.Tensor,
-                inv_view: torch.Tensor):
+                inv_view: torch.Tensor, row0: int = 0, rows: int | None = None):
     """Camera rays in place of the reference's instanced raster pass:
     pixel centres map to the NDC the vertex shader produces
     (pathtracer_vertex.glsl:66-68); viewMatrix @ dir = (ndc, 1), so
     dir = inv_view @ (ndc, 1) (inv_view: `inverse_view`, on any device).
-    Returns (origin3, dir3, ndc2), SoA channels of [N = H*W]."""
+    `row0` / `rows` select a horizontal strip of the image (the unit of
+    tile sharding, parallel.tile_sharding); the row index is arange(rows)
+    + row0 before the + 0.5, as flexlight_tpu builds it, so the strip's
+    rays are the whole frame's rows bit for bit. Returns (origin3, dir3,
+    ndc2), SoA channels of [N = rows * W]."""
     dev = position.device
+    rows = height if rows is None else rows
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
-    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
+    row_idx = torch.arange(rows, dtype=torch.float32, device=dev) + float(row0)
+    py = 1.0 - (row_idx + 0.5) / height * 2.0
     ndc_y, ndc_x = torch.meshgrid(py, px, indexing="ij")
     ndc = (ndc_x.reshape(-1), ndc_y.reshape(-1))
     inv = inv_view.to(dev)
@@ -559,26 +568,45 @@ def block_untile(x, rows: int, width: int, bh: int, bw: int):
     return x.transpose(1, 2).reshape(rows * width, *lead)
 
 
+def _row_casts(scheme: str, buffers: SceneBuffers, world_geom, tile: int):
+    """(closest(o, d, edge) -> Hit, any_hit(o, d, max_len) -> bool) of the
+    casts that take rays as [N, 3] rows and report geometry slots."""
+    if scheme in ("scan", "packet"):
+        from . import traverse as trv
+
+        if scheme == "scan":
+            return partial(trv.traverse_scan, world_geom), partial(trv.shadow_scan, world_geom)
+        return (partial(trv.traverse_coherent, world_geom, tile=tile),
+                partial(trv.shadow_coherent, world_geom, tile=tile))
+    if scheme == "mxu":
+        from . import traverse_mxu as mxu
+
+        w = mxu.build_tri_matrix(world_geom, buffers.id_buffer)
+        return partial(mxu.traverse_mxu, w, buffers.id_buffer), partial(mxu.shadow_mxu, w)
+    from . import traverse_clustered as tc
+
+    clusters = tc.build_clusters(world_geom, buffers.id_buffer)
+    return (partial(tc.traverse_clustered, clusters),
+            partial(tc.shadow_clustered, clusters))
+
+
 def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: int = 1024):
     """The scheme's cast closures (traverse_soa, shadow_soa). Both take
     `bounce=True` on the casts of the bounce loop; the sparse scheme sorts
     those wavefronts (its hinted casts) and reports drawable indices. The
-    scan and packet casts (ops.traverse, packets of `tile` rays) test dead
-    rays too, as flexlight_tpu's do: the bounce loop masks their hits."""
-    if scheme in ("scan", "packet"):
-        from . import traverse as trv
+    scan and packet casts (ops.traverse, packets of `tile` rays), the mxu
+    casts (ops.traverse_mxu) and the clustered casts
+    (ops.traverse_clustered) test dead rays too, as flexlight_tpu's do:
+    the bounce loop masks their hits."""
+    if scheme in ("scan", "packet", "mxu", "clustered"):
+        closest, any_hit = _row_casts(scheme, buffers, world_geom, tile)
 
         def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):
-            o, d = torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
-            hit = (trv.traverse_scan(world_geom, o, d, edge=edge) if scheme == "scan" else
-                   trv.traverse_coherent(world_geom, o, d, tile=tile, edge=edge))
+            hit = closest(torch.stack(o3, dim=-1), torch.stack(d3, dim=-1), edge=edge)
             return hit.suv[:, 0], hit.suv[:, 1], hit.suv[:, 2], hit.triangle
 
         def shadow_soa(o3, d3, max_len, alive=None, bounce=False):
-            o, d = torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
-            if scheme == "scan":
-                return trv.shadow_scan(world_geom, o, d, max_len)
-            return trv.shadow_coherent(world_geom, o, d, max_len, tile=tile)
+            return any_hit(torch.stack(o3, dim=-1), torch.stack(d3, dim=-1), max_len)
 
         return traverse_soa, shadow_soa
     if scheme == "sparse":
@@ -619,9 +647,11 @@ def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: 
 
 def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "kernel",
-               kernels=None, shade_kernel: bool = False, tile: int = 1024) -> MRT:
+               kernels=None, shade_kernel: bool = False, tile: int = 1024,
+               row0: int = 0, rows: int | None = None, sample_offset: int = 0,
+               local_samples: int | None = None, with_raw_aux: bool = False):
     """Full primary + bounce render to the MRT contract (glsl:601-646).
-    Returns flat [N = H*W] per-pixel outputs.
+    Returns flat [N = rows * W] per-pixel outputs.
 
     scheme="kernel": the bounce loop as plain tensor code around the dense
     closest-hit / any-hit kernels (`kernels.closest_hit`,
@@ -629,8 +659,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     ops.intersect_kernel). scheme="sparse": the same loop around the
     worklist casts of ops.intersect_sparse (`kernels.sparse_flags`,
     `sparse_key`, `sparse_closest`, `sparse_any`; default
-    ops.intersect_sparse_kernel's wrappers), with the rays in block-tiled
-    order from BLOCK_TILE_MIN_TRIS triangles on and the per-triangle tables
+    ops.intersect_sparse_kernel's wrappers), with the per-triangle tables
     in drawable order (flexlight_tpu/ops/pathtrace.py:957-1069,
     1174-1197). scheme="fused_split": the per-bounce PRE / POST kernels of
     ops.fused (`kernels.sp_pre`, `kernels.sp_post`; default
@@ -641,15 +670,28 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     scheme="scan" and "packet" (flexlight_tpu's default and its packet
     casts, plain XLA there) run the same loop around ops.traverse's
     plain casts, the packets `tile` consecutive rays (N a multiple of
-    tile). "mxu" and "clustered" are not ported (ROADMAP.md).
+    tile); scheme="mxu" and "clustered" (flexlight_tpu's CPU routes) around
+    the plain casts of ops.traverse_mxu and ops.traverse_clustered. From
+    BLOCK_TILE_MIN_TRIS triangles on, the sparse and clustered schemes
+    cast in block-tiled ray order.
 
     `shade_kernel=True` (kernel and sparse schemes) runs each bounce's
     shading in a kernel of ops.shade, routed as flexlight_tpu routes
     (ops/pathtrace.py:1320-1345): scenes whose three atlases are 1x1 take
     `kernels.interp_shade` (bounce_pre, texture select and bounce_shade),
     other scenes with <= 256 lights `kernels.shade` (bounce_shade); default
-    ops.shade_kernel's wrappers. Where neither applies, or on
-    scheme="fused_split" or "fused", it raises."""
+    ops.shade_kernel's wrappers. Where neither applies, or on another
+    scheme, it raises.
+
+    `row0` / `rows` render a horizontal strip of the image (tile sharding,
+    parallel.tile_sharding); `sample_offset` / `local_samples` a slice of
+    the per-pixel sample loop (sample sharding): the slice's sample j takes
+    the noise phase of global sample sample_offset + j, and the color is
+    still scaled by 1 / config.samples_per_ray, so the slices' colors sum
+    to the whole loop's. `with_raw_aux` also returns (original_rme_x,
+    first_ray_length) before original_w folds them into
+    min(rme, frl): rme sums over the samples and frl is their running
+    min, so sample shards combine the raw channels first."""
     if scheme in ("fused_split", "fused"):
         if shade_kernel:
             raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
@@ -659,11 +701,10 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         render = fused.render_mrt_fused_split if scheme == "fused_split" else \
             fused.render_mrt_fused
         return render(buffers, width, height, camera_pos, view_matrix, config, random_seed,
-                      kernels=kernels)
-    if scheme not in ("kernel", "sparse", "scan", "packet"):
-        raise NotImplementedError(
-            f"scheme={scheme!r} is not ported (ROADMAP.md); the port renders with "
-            "scheme='kernel', 'sparse', 'fused_split', 'fused', 'scan' or 'packet'")
+                      kernels=kernels, row0=row0, rows=rows, sample_offset=sample_offset,
+                      local_samples=local_samples, with_raw_aux=with_raw_aux)
+    if scheme not in ("kernel", "sparse", "scan", "packet", "mxu", "clustered"):
+        raise ValueError(f"unknown scheme {scheme!r}")
     if shade_kernel and scheme not in ("kernel", "sparse"):
         raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
                          f"'sparse', not of scheme={scheme!r}")
@@ -688,16 +729,17 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     world_geom = world_geometry(buffers)
     traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 
-    origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view)
+    n_rows = height if rows is None else rows
+    origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view, row0, n_rows)
     mat = build_material_table(buffers, world_geom)
     loc_geometry = buffers.geometry
-    block = _pick_block(height, width)
-    blocked = (scheme == "sparse" and block is not None
+    block = _pick_block(n_rows, width)
+    blocked = (scheme in ("sparse", "clustered") and block is not None
                and buffers.id_buffer.shape[0] >= BLOCK_TILE_MIN_TRIS)
     if blocked:
         # the origin is the camera for every ray: only directions and NDC move
-        direction3 = tuple(block_tile(c, height, width, *block) for c in direction3)
-        ndc2 = tuple(block_tile(c, height, width, *block) for c in ndc2)
+        direction3 = tuple(block_tile(c, n_rows, width, *block) for c in direction3)
+        ndc2 = tuple(block_tile(c, n_rows, width, *block) for c in ndc2)
     if scheme == "sparse":
         # the sparse casts report drawable indices: gather the per-triangle
         # tables into drawable order once per frame
@@ -714,8 +756,9 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
            zero, zero, zero,           # glassFilter, originalRMEx, originalTPOx
            one)                        # firstRayLength
     total = (zero, zero, zero)
-    for s in range(config.samples_per_ray):
-        cos_sample_n = f32(sample_cos(s), zero)
+    n_local = config.samples_per_ray if local_samples is None else local_samples
+    for j in range(n_local):
+        cos_sample_n = f32(sample_cos(sample_offset + j), zero)
         color, original_color, original_tpo_x, aux = light_trace(
             buffers, mat, primary_parts, camera_pos, direction3, ndc2,
             cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux,
@@ -724,9 +767,11 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
     mrt = assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
                        original_color, aux, loc_geometry=loc_geometry)
+    raw = (aux[2], aux[4])    # originalRMEx, firstRayLength
     if blocked:
-        mrt = MRT(*(block_untile(x, height, width, *block) for x in mrt))
-    return mrt
+        mrt = MRT(*(block_untile(x, n_rows, width, *block) for x in mrt))
+        raw = tuple(block_untile(x, n_rows, width, *block) for x in raw)
+    return (mrt, raw) if with_raw_aux else mrt
 
 
 def assemble_mrt(buffers: SceneBuffers, camera_pos, primary_uvt, final_color,

@@ -87,21 +87,42 @@ def vote_repair_packed(ids_p: torch.Tensor, oid_p: torch.Tensor, ip_w: torch.Ten
     return render_id_p, render_ip_w
 
 
+def blur_key_tile_sums(w: torch.Tensor, ty: int = 32, tx: int = 128, row0: int = 0):
+    """(sums, counts), each [tile rows, tile columns] f32: the nonzero
+    values of the blur-key plane w [H, W] and their number per (ty, tx)
+    tile of the grid anchored at the image origin, w's first row being
+    image row `row0` (a strip's tiles: its first and last may hold rows of
+    other strips, counted here as zeros)."""
+    top = row0 % ty
+    h, wd = w.shape
+    hp = -(-(top + h) // ty) * ty
+    wp = -(-wd // tx) * tx
+    t = F.pad(w, (0, wp - wd, top, hp - top - h)).reshape(hp // ty, ty, wp // tx, tx)
+    nz = t > 0.0
+    return torch.where(nz, t, 0.0).sum(dim=(1, 3)), nz.sum(dim=(1, 3)).to(torch.float32)
+
+
+def apply_blur_key_means(ocolor_p: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor,
+                         ty: int = 32, tx: int = 128, row0: int = 0):
+    """Byte 3 (the blur key) of each nonzero pixel of the packed plane
+    becomes its tile's quantized nonzero mean (`blur_key_tile_sums`' grid
+    of the same `row0`); bytes 0-2 untouched."""
+    w = byte_f(ocolor_p, 3)
+    h, wd = w.shape
+    top = row0 % ty
+    mean = torch.round(torch.clamp(sums / torch.clamp_min(counts, 1.0), 0.0, 1.0) * 255.0)
+    tr, tc = mean.shape
+    mean_full = mean.to(torch.int64)[:, None, :, None].expand(tr, ty, tc, tx)
+    mean_full = mean_full.reshape(tr * ty, tc * tx)[top:top + h, :wd]
+    new_b3 = torch.where(w > 0.0, mean_full, 0)
+    return _as_int32((ocolor_p.to(torch.int64) & _XYZ) | (new_b3 << 24))
+
+
 def tileize_blur_key_packed(ocolor_p: torch.Tensor, ty: int = 32, tx: int = 128):
     """common.tileize_blur_key on a packed plane: byte 3 (the blur key)
     becomes its per-tile nonzero mean; bytes 0-2 untouched."""
-    w = byte_f(ocolor_p, 3)
-    h, wd = w.shape
-    hp = -(-h // ty) * ty
-    wp = -(-wd // tx) * tx
-    t = F.pad(w, (0, wp - wd, 0, hp - h)).reshape(hp // ty, ty, wp // tx, tx)
-    nz = t > 0.0
-    s = torch.where(nz, t, 0.0).sum(dim=(1, 3))
-    c = nz.sum(dim=(1, 3)).to(torch.float32)
-    mean = torch.round(torch.clamp(s / torch.clamp_min(c, 1.0), 0.0, 1.0) * 255.0)
-    mean_full = mean.to(torch.int64)[:, None, :, None].expand(t.shape).reshape(hp, wp)[:h, :wd]
-    new_b3 = torch.where(w > 0.0, mean_full, 0)
-    return _as_int32((ocolor_p.to(torch.int64) & _XYZ) | (new_b3 << 24))
+    sums, counts = blur_key_tile_sums(byte_f(ocolor_p, 3), ty, tx)
+    return apply_blur_key_means(ocolor_p, sums, counts, ty, tx)
 
 
 # --------------------------------------------------------------------------

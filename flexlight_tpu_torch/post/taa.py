@@ -42,13 +42,16 @@ def neighborhood_clamp(cur: torch.Tensor):
             torch.clamp_min(stac.amax(dim=0), 0.0))
 
 
-def taa_apply(state: TAAState, frame: torch.Tensor):
+def taa_apply(state: TAAState, frame: torch.Tensor, clamp=None):
     """Push `frame` [H, W, 4] and average it with the older frames clamped
     to its neighbourhood (taa.js:25-58), summed one after another from the
-    newest as the reference sums them. Returns (out [H, W, 4], state)."""
+    newest as the reference sums them. `clamp` optionally supplies the
+    precomputed (min_rgb, max_rgb) of `neighborhood_clamp` (the sharded
+    pipeline takes them over a halo-exchanged strip). Returns (out
+    [H, W, 4], state)."""
     history = torch.cat([frame[None], state.history[:-1]], dim=0)
     cur = history[0]
-    min_rgb, max_rgb = neighborhood_clamp(cur)
+    min_rgb, max_rgb = neighborhood_clamp(cur) if clamp is None else clamp
     out = cur
     for i in range(1, FRAMES):
         out = out + torch.minimum(torch.maximum(history[i], min_rgb), max_rgb)

@@ -2,8 +2,10 @@
 against its plain version on the same tensors, and a small theater frame
 (and a small dragon stand-in frame, scheme="sparse", and a small wave
 frame, scheme="fused") through all of them; a small rasterizer frame on
-the dense and the worklist casts.
-Marked `gpu`; without a CUDA device these tests skip.
+the dense and the worklist casts; on four cards, the sharded renders of
+`flexlight_tpu_torch.parallel` over NCCL.
+Marked `gpu`; without a CUDA device these tests skip (the NCCL test
+without four).
 Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
@@ -684,3 +686,51 @@ def test_pipelined_frames_are_the_synchronous_frames_on_the_card(dev):
     frames = run(4)
     for i, f in enumerate(frames):
         assert f.dtype == np.uint8 and np.array_equal(f, sync[max(0, i - 4)]), i
+
+
+def test_sharded_over_nccl_matches_one_process(dev, tmp_path):
+    """Four cards, one rank each, on a 2 x 2 "cuda" mesh, which NCCL
+    carries (tests/torch_parallel_ranks.py `_cuda2x2`): the 2-spp
+    sample-sharded MRT against the one-process MRT (colour within 1e-4,
+    the other channels at rtol 1e-4 / atol 1e-5, as on gloo), two frames
+    of the strip-sharded halo pipeline identical to the one-process
+    frames (displays and temporal rings), the halo exchange of device
+    tensors equal to numpy's padding, and rank 0's scene on every rank."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices: a 2 x 2 mesh over NCCL, one card a rank")
+    import torch_parallel_ranks as W
+    from flexlight_tpu_torch import _native
+    from flexlight_tpu_torch.models.pathtracer import frame_pipeline
+    from flexlight_tpu_torch.ops.pathtrace import render_mrt
+
+    _native.library()  # built once here, before the ranks load it
+    ranks = W.spawn("cuda2x2", tmp_path)
+    cfgs = W.configs()
+    s = W.SIZE_MRT
+    b, cam = W.scene(roughness=0.4, device=dev)
+    one = render_mrt(b, s, s, cam.position, cam.view_matrix(s, s), cfgs["aux"], 0.0,
+                     scheme="kernel")
+    s = W.SIZE_POST
+    br, camr = W.scene(roughness=0.05, device=dev)
+    view = camr.view_matrix(s, s)
+    ref = W.frames(lambda seed, tmp, taa: frame_pipeline(
+        br, camr.position, view, seed, tmp, taa, s, s, cfgs["halo"], scheme="kernel"),
+        cfgs["halo"], 2, s, dev)
+    full = np.arange(16 * 3 * 2, dtype=np.float32).reshape(16, 3, 2)
+    pad = np.concatenate([np.zeros((2, 3, 2), np.float32), full,
+                          np.zeros((2, 3, 2), np.float32)])
+    assert float(one.alpha.mean()) > 0.5 and float(ref[-1][0].max()) > 0.0
+    for rank, res in enumerate(ranks):
+        assert "nccl" in res["backend"], res["backend"]
+        got = res["aux"]
+        np.testing.assert_allclose(got[0].numpy(), one.color.cpu().numpy(), rtol=0, atol=1e-4)
+        for field, x, y in list(zip(one._fields, got, one))[1:]:
+            np.testing.assert_allclose(x.numpy(), y.cpu().numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=field)
+        for f, ((display, state, _), want) in enumerate(zip(res["halo_frames"], ref)):
+            assert torch.equal(display, want[0].cpu()), (rank, f)
+            assert all(torch.equal(x, y.cpu()) for x, y in zip(state, want[1])), (rank, f)
+        assert res["halo_device"] == f"cuda:{rank}"
+        for i in range(2):
+            np.testing.assert_array_equal(res["halo"][i].numpy(), pad[i * 8:i * 8 + 12])
+        assert len(res["broadcast"]) == 20 and all(res["broadcast"]), rank

@@ -24,12 +24,12 @@ def _run(code):
 
 
 def test_port_and_a_cpu_frame_never_import_jax():
-    """Importing the port (with its frame server and runtime utilities)
-    and rendering a CPU frame on the fused_split, kernel and fused
-    schemes, a pipelined frame, a TAA frame, a frame of the default
-    renderer (the rasterizer) and one of the simple renderer loads no
-    module of jax and none of flexlight_tpu: the port keeps its own copy
-    of what it uses."""
+    """Importing the port (with its frame server, runtime utilities and
+    multi-device package) and rendering a CPU frame on the fused_split,
+    kernel, mxu, clustered and fused schemes, a pipelined frame, a TAA
+    frame, a frame of the default renderer (the rasterizer) and one of the
+    simple renderer loads no module of jax and none of flexlight_tpu: the
+    port keeps its own copy of what it uses."""
     code = """
 import sys
 import flexlight_tpu_torch as port
@@ -49,6 +49,11 @@ e.renderer.pipelined = 2
 assert e.renderer.render_frame_u8().shape == (12, 16, 3)
 pt = PathTracer(16, 12, e.scene, e.camera, e.config, "cpu", scheme="kernel")
 assert pt.render_frame().shape == (12, 16, 3)
+for scheme in ("mxu", "clustered"):
+    pt = PathTracer(16, 12, e.scene, e.camera, e.config, "cpu", scheme=scheme)
+    assert pt.render_frame().shape == (12, 16, 3)
+import flexlight_tpu_torch.parallel
+from flexlight_tpu_torch.parallel import multihost, tile_sharding
 from flexlight_tpu_torch.scenes import wave
 w, animate = wave(device="cpu")
 animate(0)
@@ -136,8 +141,10 @@ def _engine(device="cpu"):
 
 
 def test_unported_surface_raises():
-    """What stays unported raises: the mxu and clustered casts, on both
-    renderers that take a scheme. The rasterizer and TAA render. As in
+    """Nothing of flexlight_tpu's surface stays unported: the mxu and
+    clustered casts render on both renderers that take a scheme (they
+    raised until they were ported; the test keeps its name), and so do
+    the rasterizer and TAA. The device is an explicit argument. As in
     flexlight_tpu, only the path tracer has a pipelined fetch."""
     import flexlight_tpu_torch as port
     from flexlight_tpu_torch.models.pathtracer import PathTracer
@@ -159,8 +166,11 @@ def test_unported_surface_raises():
     for scheme in ("mxu", "clustered"):
         for cls in (PathTracer, Rasterizer):
             r = cls(8, 8, e.scene, e.camera, Config(), "cpu", scheme=scheme)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                r.render_frame()
+            img = r.render_frame()
+            assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0.0
+            assert r.metrics.last["scheme"] == scheme
+    with pytest.raises(ValueError, match="unknown scheme"):
+        PathTracer(8, 8, e.scene, e.camera, Config(), "cpu", scheme="bvh").render_frame()
 
 
 def test_transform_cache_survives_a_registry_reset():

@@ -2,7 +2,7 @@
 same inputs (the JAX buffers carried across with buffers_from_numpy, the
 same camera position and view matrix), and the engine's renderer routes.
 
-raster_frame is held on each of the four ported schemes against
+raster_frame is held on each of its schemes against
 flexlight_tpu's raster_frame on the same scheme (its kernel and sparse
 casts in interpret mode, as its own tests run them): textured cornell
 with antialiasing None, "fxaa" and "taa" (3 jittered frames), and the
@@ -302,12 +302,19 @@ def test_engine_routes_and_auto_scheme():
 
 
 @pytest.mark.parametrize("scheme", ["mxu", "clustered"])
-def test_unported_schemes_raise(scheme):
-    jb, tb, camera = _buffers("wall_first")
+def test_unported_schemes_raise(recorded_casts, scheme):
+    """The mxu and clustered schemes are ported now (the name stays from
+    when they raised): raster_frame on each, on the translucent layer
+    scene at layers = 4, against flexlight_tpu's on the same scheme, with
+    the tolerances of test_raster_frame_matches_flexlight_tpu; and the
+    Rasterizer renders on them through render_frame."""
+    (got,), (ref,), tb = _frames("wall_first", scheme, None, 4)
+    tie = _tie_pixels(tb, recorded_casts)
+    d = np.abs(got - ref).max(axis=-1)
+    assert got.shape == (SIZE, SIZE, 3) and np.isfinite(got).all()
+    assert float(d[~tie].max(initial=0.0)) <= 1e-5, (d[~tie].max(), (d > 1e-5).sum())
+    assert tie.mean() <= 0.1 and got.mean() > 0.05
+    _, tb, camera = _buffers("wall_first")
     r = R.Rasterizer(8, 8, None, camera, port.Config(), "cpu", scheme=scheme)
     r._buffers = tb
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_frame()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.raster_frame(tb, camera.position, camera.view_matrix(8, 8),
-                       TAAState.create(8, 8, "cpu"), 8, 8, port.Config(), scheme=scheme)
+    assert r.render_frame().shape == (8, 8, 3) and r.metrics.last["scheme"] == scheme

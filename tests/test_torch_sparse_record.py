@@ -27,6 +27,7 @@ from flexlight_tpu_torch import _native
 from flexlight_tpu_torch.ops import intersect_kernel as IK
 from flexlight_tpu_torch.ops import intersect_sparse as S
 from flexlight_tpu_torch.ops import intersect_sparse_kernel as K
+from flexlight_tpu_torch.ops import traverse_mxu as TM
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32
 
 RING = 3             # csrc/sparse.cu FL_RING: tiles staged at once
@@ -117,7 +118,7 @@ def test_record_products_equal_the_w_rows_products():
     assert torch.equal(det[:, 4:7], -n) and torch.equal(sdet[:, 1:4], n)
     assert torch.equal(sdet[:, 0], -v0n)
     assert torch.equal(udet[:, 4:7], -c) and torch.equal(vdet[:, 4:7], -g)
-    assert torch.equal(udet[:, 7:16], IK._skew(e2)) and torch.equal(vdet[:, 7:16], -IK._skew(e1))
+    assert torch.equal(udet[:, 7:16], TM._skew(e2)) and torch.equal(vdet[:, 7:16], -TM._skew(e1))
     # padding records: all zeros, as build_tiled pads its last tile
     scene = S.build_tiled(wg, ids)
     padded = scene.rec.reshape(-1, 16)
