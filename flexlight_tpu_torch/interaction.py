@@ -15,6 +15,7 @@ import math
 import time
 
 from .utils import mathlib
+from .utils.timing import span
 
 # key -> signed axis (io.js:5-12)
 TRANSLATION_MAP = {
@@ -70,16 +71,18 @@ class WebIo:
         self._movement = [0.0, 0.0, 0.0]
 
     def update(self, now_ms: float | None = None):
-        """Integrate movement into the camera (io.js:51-59)."""
+        """Integrate movement into the camera (io.js:51-59). Traced: the
+        span fl.input."""
         if not self.is_listening or self.camera is None:
             return
-        now_ms = time.perf_counter() * 1000.0 if now_ms is None else now_ms
-        c = self.camera
-        diff = (now_ms - self._saved_time) * self.movement_speed
-        c.x += diff * (self._movement[0] * math.cos(c.fx) - self._movement[2] * math.sin(c.fx))
-        c.y += diff * self._movement[1]
-        c.z += diff * (self._movement[2] * math.cos(c.fx) + self._movement[0] * math.sin(c.fx))
-        self._saved_time = now_ms
+        with span("fl.input"):
+            now_ms = time.perf_counter() * 1000.0 if now_ms is None else now_ms
+            c = self.camera
+            diff = (now_ms - self._saved_time) * self.movement_speed
+            c.x += diff * (self._movement[0] * math.cos(c.fx) - self._movement[2] * math.sin(c.fx))
+            c.y += diff * self._movement[1]
+            c.z += diff * (self._movement[2] * math.cos(c.fx) + self._movement[0] * math.sin(c.fx))
+            self._saved_time = now_ms
 
     def mouse_move(self, dx: float, dy: float, width: int = 512, height: int = 512):
         """Mouse-look with fy clamped to +-pi/2 (io.js:99-105)."""

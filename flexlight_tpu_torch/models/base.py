@@ -16,6 +16,7 @@ import torch
 
 from ..ops.buffers import build_scene_buffers
 from ..utils.metrics import FrameMetrics, frame_record
+from ..utils.timing import span
 
 
 class Renderer:
@@ -116,28 +117,35 @@ class Renderer:
     def _render_fetch(self, as_u8: bool) -> np.ndarray:
         """Render a frame, fetch it to the host (as uint8 with `as_u8`: the
         reference's RGBA8 canvas store), update fps (a 500 ms window,
-        pathtracerWGL2.js:293-298) and record the frame's metrics."""
+        pathtracerWGL2.js:293-298) and record the frame's metrics. Traced,
+        the frame is the span fl.frame {frame, scheme}, the fetch fl.fetch."""
         if self.freeze and self._last_frame is not None:
             return self._last_frame
-        frame_t0 = time.perf_counter()
-        display = self._render_device()
-        if as_u8:
-            display = torch.round(torch.clamp(display, 0.0, 1.0) * 255.0).to(torch.uint8)
-        self._last_frame = self._fetch(display)
-        self._fps_frames += 1
-        now = time.perf_counter()
-        self._last_frame_time = now
-        elapsed = now - self._fps_window_start
-        if elapsed > 0.5:
-            self.fps = self._fps_frames / elapsed
-            self._fps_window_start = now
-            self._fps_frames = 0
-        frame_record(self, (now - frame_t0) * 1000.0, **self._frame_extra())
+        with span("fl.frame") as frame_span:
+            frame_t0 = time.perf_counter()
+            display = self._render_device()
+            with span("fl.fetch"):
+                if as_u8:
+                    display = torch.round(torch.clamp(display, 0.0, 1.0) * 255.0).to(torch.uint8)
+                self._last_frame = self._fetch(display)
+            self._fps_frames += 1
+            now = time.perf_counter()
+            self._last_frame_time = now
+            elapsed = now - self._fps_window_start
+            if elapsed > 0.5:
+                self.fps = self._fps_frames / elapsed
+                self._fps_window_start = now
+                self._fps_frames = 0
+            extra = self._frame_extra()
+            frame_record(self, (now - frame_t0) * 1000.0, **extra)
+            frame_span.set(frame=self._frame_count, **extra)
         return self._last_frame
 
     def _fetch(self, display: torch.Tensor) -> np.ndarray:
-        """The finished frame on the host (a synchronous copy)."""
-        return display.cpu().numpy()
+        """The finished frame on the host (a synchronous copy: the span
+        fl.fetch_wait)."""
+        with span("fl.fetch_wait"):
+            return display.cpu().numpy()
 
     def _throttle(self):
         """fpsLimit: wait out the rest of the frame's share of a second."""

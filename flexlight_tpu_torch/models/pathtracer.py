@@ -46,6 +46,7 @@ from ..post.fxaa_kernel import fxaa_cuda
 from ..post.taa import Jitter, TAAState, taa_apply, taa_history
 from ..post.temporal import TemporalState, push_frame, temporal_average
 from ..utils.debug import assert_finite
+from ..utils.timing import span
 from .base import Renderer
 
 
@@ -150,47 +151,56 @@ def _filter_chain_packed(config: Config, r0, ip0, oc0, id0, oid,
 def postprocess_mrt(mrt, temporal_state: TemporalState, taa_state: TAAState | None,
                     width: int, height: int, config: Config, kernels: KernelSet = KERNELS):
     """temporal -> denoise -> AA. Returns (display rgb [H,W,3] in [0,1],
-    temporal state, TAA state; None unless antialiasing="taa")."""
-    color, alpha, color_q, ip_q, id_q, oid_q, ocolor_q = _quantized_mrt(mrt, height, width)
-    use_aa = config.antialiasing in ("fxaa", "taa")
-    if config.temporal:
-        # randomSeed-synced accumulation ring (pathtracerWGL2.js:389-401)
-        temporal_state = push_frame(temporal_state, color_q, ip_q, id_q, oid_q)
-        t_color, t_glass, center_w = temporal_average(temporal_state)
-        if config.filter:
-            frac_q, high_q = split_hdr(t_color)
-            r0 = torch.cat([frac_q, center_w[..., None]], dim=-1)
-            ip0 = torch.cat([high_q, quantize_rgba8(t_glass)[..., None]], dim=-1)
-            display = _filter_chain_packed(config, r0, ip0, ocolor_q, id_q, oid_q, kernels)
+    temporal state, TAA state; None unless antialiasing="taa"). Traced:
+    fl.post, over fl.temporal, fl.filter and fl.aa."""
+    with span("fl.post"):
+        color, alpha, color_q, ip_q, id_q, oid_q, ocolor_q = _quantized_mrt(mrt, height, width)
+        use_aa = config.antialiasing in ("fxaa", "taa")
+        if config.temporal:
+            # randomSeed-synced accumulation ring (pathtracerWGL2.js:389-401)
+            with span("fl.temporal"):
+                temporal_state = push_frame(temporal_state, color_q, ip_q, id_q, oid_q)
+                t_color, t_glass, center_w = temporal_average(temporal_state)
+            if config.filter:
+                with span("fl.filter"):
+                    frac_q, high_q = split_hdr(t_color)
+                    r0 = torch.cat([frac_q, center_w[..., None]], dim=-1)
+                    ip0 = torch.cat([high_q, quantize_rgba8(t_glass)[..., None]], dim=-1)
+                    display = _filter_chain_packed(config, r0, ip0, ocolor_q, id_q, oid_q,
+                                                   kernels)
+            else:
+                # temporal-only output is raw and lands in an RGBA8 target
+                display = torch.clamp(t_color, 0.0, 1.0)
+                if use_aa:
+                    display = quantize_rgba8(display)
+        elif config.filter:
+            with span("fl.filter"):
+                display = _filter_chain_packed(config, color_q, ip_q, ocolor_q, id_q, oid_q,
+                                               kernels)
         else:
-            # temporal-only output is raw and lands in an RGBA8 target
-            display = torch.clamp(t_color, 0.0, 1.0)
-            if use_aa:
-                display = quantize_rgba8(display)
-    elif config.filter:
-        display = _filter_chain_packed(config, color_q, ip_q, ocolor_q, id_q, oid_q, kernels)
-    else:
-        # direct mode (glsl:625-632): fold in first-hit albedo, no tone map
-        display = torch.clamp(color * mrt.original_color.reshape(height, width, 3), 0.0, 1.0)
-    if use_aa:
-        aa_in = torch.cat([quantize_rgba8(display),
-                           (alpha > 0).to(torch.float32)[..., None]], dim=-1)
-        if config.antialiasing == "fxaa":
-            display = kernels.fxaa(aa_in)[..., 0:3]
-        else:
-            out, taa_state = taa_apply(taa_state, aa_in)
-            display = out[..., 0:3]
-    return torch.clamp(display, 0.0, 1.0), temporal_state, taa_state
+            # direct mode (glsl:625-632): fold in first-hit albedo, no tone map
+            display = torch.clamp(color * mrt.original_color.reshape(height, width, 3), 0.0, 1.0)
+        if use_aa:
+            with span("fl.aa"):
+                aa_in = torch.cat([quantize_rgba8(display),
+                                   (alpha > 0).to(torch.float32)[..., None]], dim=-1)
+                if config.antialiasing == "fxaa":
+                    display = kernels.fxaa(aa_in)[..., 0:3]
+                else:
+                    out, taa_state = taa_apply(taa_state, aa_in)
+                    display = out[..., 0:3]
+        return torch.clamp(display, 0.0, 1.0), temporal_state, taa_state
 
 
 def frame_pipeline(buffers, cam_pos, view, random_seed, temporal_state: TemporalState,
                    taa_state: TAAState | None, width: int, height: int, config: Config,
                    kernels: KernelSet = KERNELS, scheme: str = "kernel",
                    shade_kernel: bool = False, tile: int = 1024):
-    """One full frame: MRT path-trace pass + post. Returns (display,
-    temporal state, TAA state)."""
-    mrt = render_mrt(buffers, width, height, cam_pos, view, config, random_seed,
-                     scheme=scheme, kernels=kernels, shade_kernel=shade_kernel, tile=tile)
+    """One full frame: MRT path-trace pass (traced: fl.render_mrt) + post.
+    Returns (display, temporal state, TAA state)."""
+    with span("fl.render_mrt"):
+        mrt = render_mrt(buffers, width, height, cam_pos, view, config, random_seed,
+                         scheme=scheme, kernels=kernels, shade_kernel=shade_kernel, tile=tile)
     return postprocess_mrt(mrt, temporal_state, taa_state, width, height, config, kernels)
 
 
@@ -338,11 +348,14 @@ class _HostCopy:
         self._array = None
 
     def result(self) -> np.ndarray:
+        """The frame's array, once its copy has ended (traced, the wait on
+        its event is fl.fetch_wait)."""
         if self._array is None:
             if self.event is None:
                 self._array = self.host.numpy()
             else:
-                self.event.synchronize()
+                with span("fl.fetch_wait"):
+                    self.event.synchronize()
                 self._array = self.host.numpy().copy()
             self.host = None
         return self._array

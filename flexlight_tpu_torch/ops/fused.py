@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import span
 from . import vec3 as v3
 from .buffers import AtlasTable, SceneBuffers
 from .geometry import world_geometry
@@ -258,16 +259,19 @@ def split_frame(dirs, ndc, w4, ids, mat, lights, ambient, atlases, cam, seed, co
     three AtlasTables; the frame runs one sample for each phase of
     `cos_samples` (the whole loop, or a slice of it: render_mrt's
     sample_offset / local_samples), and scales their sum by
-    1 / config.samples_per_ray."""
+    1 / config.samples_per_ray. Traced, each sample's `pre` is the span
+    fl.primary, bounce i fl.bounce {i}."""
     n = dirs.shape[1]
     state = torch.empty((SP_C, n), dtype=torch.float32, device=dirs.device)
     total = None
     for s in range(len(cos_samples)):
-        state = pre(state, dirs, w4, ids, mat, cam, s > 0, config)
+        with span("fl.primary"):
+            state = pre(state, dirs, w4, ids, mat, cam, s > 0, config)
         for i in range(config.max_reflections):
-            tex = tex_block(atlases, state)
-            state = post(state, tex, ndc, w4, ids, mat, lights, cam, seed, cos_samples[s], i,
-                         config)
+            with span("fl.bounce", i=i):
+                tex = tex_block(atlases, state)
+                state = post(state, tex, ndc, w4, ids, mat, lights, cam, seed, cos_samples[s],
+                             i, config)
         # light_trace's epilogue (glsl:595-597): ambient by importancy
         color = tuple(state[FINAL_COLOR + c] + state[IMPORTANCY + c] * ambient[c]
                       for c in range(3))
@@ -295,15 +299,17 @@ def fused_frame_plain(dirs, ndc, w4, ids, mat, lights, ambient, albedo_tab, pbr_
 def frame_inputs(buffers: SceneBuffers, width: int, height: int, camera_pos, view_matrix,
                  row0: int = 0, rows: int | None = None):
     """(cam, dirs [3, N], ndc [2, N], w4, ids, material table) of a frame,
-    or of its strip of `rows` rows from `row0` (N = rows * W)."""
-    dev = buffers.geometry.device
-    cam = upload(camera_pos, dev)
-    inv_view = upload(inverse_view(view_matrix), dev)
-    world_geom = world_geometry(buffers)
-    w4, ids = build_w4(world_geom, buffers.id_buffer)
-    mat = build_material_table(buffers, world_geom).contiguous()
-    _, direction3, ndc2 = camera_rays(width, height, cam, inv_view, row0, rows)
-    return cam, torch.stack(direction3), torch.stack(ndc2), w4, ids, mat
+    or of its strip of `rows` rows from `row0` (N = rows * W). Traced: the
+    span fl.primary."""
+    with span("fl.primary"):
+        dev = buffers.geometry.device
+        cam = upload(camera_pos, dev)
+        inv_view = upload(inverse_view(view_matrix), dev)
+        world_geom = world_geometry(buffers)
+        w4, ids = build_w4(world_geom, buffers.id_buffer)
+        mat = build_material_table(buffers, world_geom).contiguous()
+        _, direction3, ndc2 = camera_rays(width, height, cam, inv_view, row0, rows)
+        return cam, torch.stack(direction3), torch.stack(ndc2), w4, ids, mat
 
 
 def _phases(config, sample_offset: int, local_samples: int | None) -> list:
@@ -314,13 +320,15 @@ def _phases(config, sample_offset: int, local_samples: int | None) -> list:
 
 def mrt_from_block(buffers: SceneBuffers, cam, block, with_raw_aux: bool = False):
     """The MRT of a frame block (assemble_mrt); with `with_raw_aux`,
-    (MRT, (original_rme_x, first_ray_length)) as render_mrt returns it."""
-    aux = (tuple(block[FR_RENDER_ID + k] for k in range(4)), block[FR_GLASS],
-           block[FR_RME_X], block[FR_TPO_X], block[FR_FIRST_RAY_LENGTH])
-    ptri = block[FR_PPART + 3].to(torch.int32)
-    mrt = assemble_mrt(buffers, cam, (block[FR_PPART + 1], block[FR_PPART + 2], ptri),
-                       tuple(block[FR_COLOR:FR_COLOR + 3]),
-                       tuple(block[FR_ORIGINAL_COLOR:FR_ORIGINAL_COLOR + 3]), aux)
+    (MRT, (original_rme_x, first_ray_length)) as render_mrt returns it.
+    Traced: the span fl.mrt."""
+    with span("fl.mrt"):
+        aux = (tuple(block[FR_RENDER_ID + k] for k in range(4)), block[FR_GLASS],
+               block[FR_RME_X], block[FR_TPO_X], block[FR_FIRST_RAY_LENGTH])
+        ptri = block[FR_PPART + 3].to(torch.int32)
+        mrt = assemble_mrt(buffers, cam, (block[FR_PPART + 1], block[FR_PPART + 2], ptri),
+                           tuple(block[FR_COLOR:FR_COLOR + 3]),
+                           tuple(block[FR_ORIGINAL_COLOR:FR_ORIGINAL_COLOR + 3]), aux)
     if with_raw_aux:
         return mrt, (block[FR_RME_X], block[FR_FIRST_RAY_LENGTH])
     return mrt

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from . import vec3 as v3
 from .brdf import SQRT3, forward_trace_soa, pow5
 from .buffers import SceneBuffers, fetch_tex_val_table
@@ -521,18 +522,20 @@ def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
     which the shading kernels of ops.shade enter: `bounce_post_impl`
     takes bounce_post's place after the eager bounce_pre and bounce_tex,
     `bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
-    traverse_soa, shadow_soa)` the whole bounce."""
+    traverse_soa, shadow_soa)` the whole bounce. Traced, bounce i is the
+    span fl.bounce {i}."""
     post = bounce_post if bounce_post_impl is None else bounce_post_impl
     carry = bounce_carry_init(primary_parts, camera_pos, direction3, aux)
     for i in range(config.max_reflections):
-        if bounce_step_impl is not None:
-            carry = bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
-                                     traverse_soa, shadow_soa)
-            continue
-        carry, surface = bounce_pre(carry, i, mat, config)
-        tex = bounce_tex(buffers, surface)
-        carry = post(carry, surface, tex, i, buffers, camera_pos, ndc2, cos_sample_n,
-                     config, random_seed, traverse_soa, shadow_soa)
+        with span("fl.bounce", i=i):
+            if bounce_step_impl is not None:
+                carry = bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
+                                         traverse_soa, shadow_soa)
+                continue
+            carry, surface = bounce_pre(carry, i, mat, config)
+            tex = bounce_tex(buffers, surface)
+            carry = post(carry, surface, tex, i, buffers, camera_pos, ndc2, cos_sample_n,
+                         config, random_seed, traverse_soa, shadow_soa)
     final_color = tuple(carry.final_color[c] + carry.importancy[c] * buffers.ambient[c]
                         for c in range(3))
     aux = (carry.render_id, carry.glass, carry.original_rme_x,
@@ -691,7 +694,11 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     to the whole loop's. `with_raw_aux` also returns (original_rme_x,
     first_ray_length) before original_w folds them into
     min(rme, frl): rme sums over the samples and frl is their running
-    min, so sample shards combine the raw channels first."""
+    min, so sample shards combine the raw channels first.
+
+    Traced (kernel, sparse, scan, packet, mxu and clustered schemes): the
+    camera rays and the primary cast are the span fl.primary, each bounce
+    fl.bounce {i} (light_trace), the render targets fl.mrt."""
     if scheme in ("fused_split", "fused"):
         if shade_kernel:
             raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
@@ -722,33 +729,34 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
             raise ValueError(f"shade_kernel=True: the scene has {buffers.lights.shape[0]} "
                              f"lights, the shading kernels take <= {shade.MAX_LIGHTS}")
 
-    dev = buffers.geometry.device
-    camera_pos = upload(camera_pos, dev)
-    inv_view = upload(inverse_view(view_matrix), dev)
-    random_seed = upload(random_seed, dev)
-    world_geom = world_geometry(buffers)
-    traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
+    with span("fl.primary"):
+        dev = buffers.geometry.device
+        camera_pos = upload(camera_pos, dev)
+        inv_view = upload(inverse_view(view_matrix), dev)
+        random_seed = upload(random_seed, dev)
+        world_geom = world_geometry(buffers)
+        traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 
-    n_rows = height if rows is None else rows
-    origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view, row0, n_rows)
-    mat = build_material_table(buffers, world_geom)
-    loc_geometry = buffers.geometry
-    block = _pick_block(n_rows, width)
-    blocked = (scheme in ("sparse", "clustered") and block is not None
-               and buffers.id_buffer.shape[0] >= BLOCK_TILE_MIN_TRIS)
-    if blocked:
-        # the origin is the camera for every ray: only directions and NDC move
-        direction3 = tuple(block_tile(c, n_rows, width, *block) for c in direction3)
-        ndc2 = tuple(block_tile(c, n_rows, width, *block) for c in ndc2)
-    if scheme == "sparse":
-        # the sparse casts report drawable indices: gather the per-triangle
-        # tables into drawable order once per frame
-        ids = buffers.id_buffer.long()
-        mat = mat[ids]
-        loc_geometry = loc_geometry[ids]
-    # primaries replace the reference's watertight raster pass, so they take
-    # the relaxed edge window; bounce rays keep the exact +BIAS window
-    primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
+        n_rows = height if rows is None else rows
+        origin3, direction3, ndc2 = camera_rays(width, height, camera_pos, inv_view, row0, n_rows)
+        mat = build_material_table(buffers, world_geom)
+        loc_geometry = buffers.geometry
+        block = _pick_block(n_rows, width)
+        blocked = (scheme in ("sparse", "clustered") and block is not None
+                   and buffers.id_buffer.shape[0] >= BLOCK_TILE_MIN_TRIS)
+        if blocked:
+            # the origin is the camera for every ray: only directions and NDC move
+            direction3 = tuple(block_tile(c, n_rows, width, *block) for c in direction3)
+            ndc2 = tuple(block_tile(c, n_rows, width, *block) for c in ndc2)
+        if scheme == "sparse":
+            # the sparse casts report drawable indices: gather the per-triangle
+            # tables into drawable order once per frame
+            ids = buffers.id_buffer.long()
+            mat = mat[ids]
+            loc_geometry = loc_geometry[ids]
+        # primaries replace the reference's watertight raster pass, so they take
+        # the relaxed edge window; bounce rays keep the exact +BIAS window
+        primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
 
     zero = torch.zeros_like(primary_parts[0])
     one = torch.ones_like(zero)
@@ -765,12 +773,13 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
             bounce_post_impl=bounce_post_impl, bounce_step_impl=bounce_step_impl)
         total = v3.add3(total, color)
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
-    mrt = assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
-                       original_color, aux, loc_geometry=loc_geometry)
-    raw = (aux[2], aux[4])    # originalRMEx, firstRayLength
-    if blocked:
-        mrt = MRT(*(block_untile(x, n_rows, width, *block) for x in mrt))
-        raw = tuple(block_untile(x, n_rows, width, *block) for x in raw)
+    with span("fl.mrt"):
+        mrt = assemble_mrt(buffers, camera_pos, primary_parts[1:], final_color,
+                           original_color, aux, loc_geometry=loc_geometry)
+        raw = (aux[2], aux[4])    # originalRMEx, firstRayLength
+        if blocked:
+            mrt = MRT(*(block_untile(x, n_rows, width, *block) for x in mrt))
+            raw = tuple(block_untile(x, n_rows, width, *block) for x in raw)
     return (mrt, raw) if with_raw_aux else mrt
 
 

@@ -9,7 +9,8 @@ on a headless card host, so the canvas is served over HTTP instead:
                       key handlers and drag-to-look, all posting to /input,
                       plus the live quality-knob form (the reference's
                       exampleLoader.html:30-75 parameter form)
-- ``GET /frame.png``  the most recent rendered frame (PNG)
+- ``GET /frame.png``  the most recent rendered frame (PNG), its number
+                      in the ``X-Frame-Seq`` header
 - ``POST /input``     ``{"type": "keydown"|"keyup", "code": "KeyW"}`` or
                       ``{"type": "mouse", "dx": .., "dy": ..}`` — routed
                       into the engine's WebIo (same key/axis map and
@@ -27,6 +28,10 @@ on a headless card host, so the canvas is served over HTTP instead:
 One render thread owns the device (frames are rendered continuously,
 honoring ``renderer.fps_limit``); HTTP handlers only swap the latest PNG
 bytes and mutate IO state, so the device is never touched concurrently.
+
+Traced (utils.timing: while a torch profiler records), the render
+thread's PNG encode of a frame is the span fl.serve.encode {seq}, and a
+handler's send of it fl.serve.send {seq}.
 
 Usage:
     server = FrameServer(engine, port=8764)
@@ -48,6 +53,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .utils.image import png_bytes
+from .utils.timing import span
 
 _VIEWER_HTML = """<!doctype html>
 <html><head><title>flexlight_tpu</title><style>
@@ -160,8 +166,9 @@ class FrameServer:
         self.port = self._httpd.server_address[1]
         self._stop.clear()
         self._threads = [
-            threading.Thread(target=self._render_loop, daemon=True),
-            threading.Thread(target=self._httpd.serve_forever, daemon=True),
+            threading.Thread(target=self._render_loop, name="flexlight-render", daemon=True),
+            threading.Thread(target=self._httpd.serve_forever, name="flexlight-http",
+                             daemon=True),
         ]
         for t in self._threads:
             t.start()
@@ -263,10 +270,13 @@ class FrameServer:
             fetch = getattr(renderer, "render_frame_u8",
                             renderer.render_frame)
             io.update()  # integrate held keys into the camera (io.js:51-59)
-            data = png_bytes(fetch(), level=1)  # fast encode: live view
+            frame = fetch()
+            seq = self._seq + 1          # only this thread writes _seq
+            with span("fl.serve.encode", seq=seq):
+                data = png_bytes(frame, level=1)  # fast encode: live view
             with self._lock:
-                self._seq += 1
-                self._latest = data
+                self._seq = seq
+                self._latest = (seq, data)
 
     # -- http ----------------------------------------------------------------
     def _make_handler(server_self, io):
@@ -274,10 +284,12 @@ class FrameServer:
             def log_message(self, *args):  # quiet
                 pass
 
-            def _send(self, code, ctype, body: bytes):
+            def _send(self, code, ctype, body: bytes, headers=()):
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
+                for key, value in headers:
+                    self.send_header(key, value)
                 self.send_header("Cache-Control", "no-store")
                 self.end_headers()
                 self.wfile.write(body)
@@ -288,19 +300,24 @@ class FrameServer:
                     self._send(200, "text/html", _VIEWER_HTML.encode())
                 elif path == "/frame.png":
                     with server_self._lock:
-                        data = server_self._latest
-                    if data is None:
+                        latest = server_self._latest
+                    if latest is None:
                         self._send(503, "text/plain", b"no frame yet")
                     else:
-                        self._send(200, "image/png", data)
+                        seq, data = latest
+                        with span("fl.serve.send", seq=seq):
+                            self._send(200, "image/png", data,
+                                       headers=(("X-Frame-Seq", str(seq)),))
                 elif path == "/config":
                     body = json.dumps(server_self.config_snapshot()).encode()
                     self._send(200, "application/json", body)
                 elif path == "/stats":
                     renderer = server_self.engine.renderer
                     rec = renderer.metrics.last or {}
+                    with server_self._lock:
+                        frames = server_self._seq
                     body = json.dumps({"fps": renderer.fps,
-                                       "frames": server_self._seq,
+                                       "frames": frames,
                                        "last": rec}).encode()
                     self._send(200, "application/json", body)
                 else:

@@ -1,73 +1,159 @@
-"""Tracing / profiling utilities (flexlight_tpu/utils/timing.py on torch).
+"""The port's tracing utilities: spans inside the program on one
+recorder, torch.profiler's Chrome-trace exporter, and the NaN / Inf guard
+of the port's debug mode.
 
 The reference only counts FPS over 500 ms windows (pathtracerWGL2.js:293-298).
-Here timing is first-class: per-pass wall clock, ms/frame and Mrays/s
-counters (`FrameStats`, the same as flexlight_tpu's), a torch.profiler
-trace context that writes a Chrome trace, and the NaN / Inf guard of the
-port's debug mode.
+Here the program marks where its work happens:
+
+    with span("fl.bounce", i=i):     # a named stretch of host time
+        ...
+
+Tracing is on exactly while a torch profiler records in this process
+(`torch.profiler.profile`, `profile_trace`): torch sets
+`torch.autograd.profiler._is_profiler_enabled` from the profiler's start to
+its stop, on every thread. Off, `span` reads that flag and returns a
+shared object that does nothing. On, a span stamps `time.perf_counter_ns()`
+at its enter and exit (the clock of `time.perf_counter`), and enters a
+torch record function of its name, so that it lies on the profiler's
+timeline beside the kernels in every thread the profiler records. It is a
+function-scope record function (`torch._C._profiler._RecordFunctionFast`),
+not a user annotation (`torch.profiler.record_function`): a user
+annotation is mirrored onto the device's timeline as a
+`gpu_user_annotation` event, which a trace reader would count as device
+work. A span that tracing saw begin and end is kept, with the innermost
+open span of its thread as its parent, in a deque of the newest `CAPACITY`
+spans; `recorded()` returns them, `reset()` clears them. Variable data (a
+bounce, a frame number) goes in a span's attributes, never in its name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
+from collections import deque
+from typing import NamedTuple
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
-class FrameStats:
-    """Rolling per-pass timings + derived renderer metrics."""
+class Span(NamedTuple):
+    """A kept span. `id` is its number in this process; `parent` the id of
+    the innermost span open on the same thread at its enter (None at a
+    root); `trace` the id of the root of its thread's nest, shared by
+    every span under one root (a frame: one trace); `thread` the name of
+    its thread."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    trace: int
+    thread: str
+    attrs: dict
 
-    def __init__(self, window: float = 0.5):
-        self.window = window
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-        self.fps = 0.0
-        self._frames = 0
-        self._window_start = time.perf_counter()
 
-    @contextlib.contextmanager
-    def time_pass(self, name: str):
-        """Wall-clock a pass; synchronize the device inside the block for
-        honest device timing."""
-        t0 = time.perf_counter()
-        yield
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+CAPACITY = 1 << 16
 
-    def end_frame(self) -> float:
-        """Count a frame; returns current fps (500ms windows like the
-        reference)."""
-        self._frames += 1
-        now = time.perf_counter()
-        elapsed = now - self._window_start
-        if elapsed > self.window:
-            self.fps = self._frames / elapsed
-            self._window_start = now
-            self._frames = 0
-        return self.fps
+_spans: deque[Span] = deque(maxlen=CAPACITY)
+_lock = threading.Lock()
+_local = threading.local()      # .stack: the thread's open spans
+_ids = itertools.count(1)
 
-    def ms_per_pass(self) -> dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1) * 1000.0
-                for k in self.totals}
 
-    def mrays_per_s(self, rays_per_frame: float) -> float:
-        return rays_per_frame * self.fps / 1e6
+def tracing() -> bool:
+    """Whether a torch profiler records in this process."""
+    return _profiler._is_profiler_enabled
 
-    def report(self) -> str:
-        lines = [f"fps={self.fps:.1f}"]
-        for k, v in sorted(self.ms_per_pass().items()):
-            lines.append(f"  {k}: {v:.2f} ms")
-        return "\n".join(lines)
+
+class _Off:
+    """The span of tracing off: does nothing, holds nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_OFF = _Off()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Open:
+    """A span entered with tracing on."""
+    __slots__ = ("name", "attrs", "id", "parent", "trace", "start", "fn")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        stack = _stack()
+        top = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = None if top is None else top.id
+        self.trace = self.id if top is None else top.trace
+        stack.append(self)
+        self.fn = torch._C._profiler._RecordFunctionFast(self.name)
+        self.fn.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.fn.__exit__(*exc)
+        _stack().pop()
+        if tracing():
+            kept = Span(self.name, self.start, end, self.id, self.parent, self.trace,
+                        threading.current_thread().name, self.attrs)
+            with _lock:
+                _spans.append(kept)
+        return False
+
+    def set(self, **attrs):
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+
+def span(name: str, **attrs):
+    """A context manager over a named stretch of host time (kept while
+    tracing is on at its enter and at its exit)."""
+    if not tracing():
+        return _OFF
+    return _Open(name, attrs)
+
+
+def recorded() -> list[Span]:
+    """The kept spans, oldest first."""
+    with _lock:
+        return list(_spans)
+
+
+def reset():
+    with _lock:
+        _spans.clear()
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """torch.profiler over the block (host ops, and the device's kernels
-    when CUDA is available), written as a Chrome trace
-    `<log_dir>/trace.json` (open it in chrome://tracing or Perfetto).
-    Yields the profiler."""
-    import torch
+    """torch.profiler over the block (host ops, the program's spans, and
+    the device's kernels when CUDA is available), written as a Chrome
+    trace `<log_dir>/trace.json` (open it in chrome://tracing or
+    Perfetto). Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -23,10 +23,12 @@ import zlib
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 import flexlight_tpu_torch as port
 from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.serve import FrameServer
+from flexlight_tpu_torch.utils import timing
 
 
 def _tiny_engine():
@@ -203,6 +205,40 @@ def test_bad_input_rejected(server):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(url + "input", {"type": "nope"})
     assert e.value.code == 400
+
+
+def test_frame_seq_header_and_served_counters(server):
+    """/frame.png names its frame (X-Frame-Seq); traced, the render thread
+    keeps fl.serve.encode {seq} beside its frames (fl.frame), and a
+    handler keeps fl.serve.send {seq} of the frame it sent: the seqs that
+    portbench/metrics/served_share.py counts."""
+    srv, url = server
+    timing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert srv.wait_for_frame(srv._seq + 2)
+            seqs = []
+            for _ in range(2):
+                with urllib.request.urlopen(url + "frame.png", timeout=30) as r:
+                    seqs.append(int(r.headers["X-Frame-Seq"]))
+                    r.read()
+            assert srv.wait_for_frame(seqs[-1] + 1)
+        spans = timing.recorded()
+    finally:
+        timing.reset()
+    assert 1 <= seqs[0] <= seqs[1] <= srv._seq
+    encodes = [s for s in spans if s.name == "fl.serve.encode"]
+    sends = [s for s in spans if s.name == "fl.serve.send"]
+    frames = [s for s in spans if s.name == "fl.frame"]
+    assert encodes and {s.thread for s in encodes} == {"flexlight-render"}
+    assert frames and {s.thread for s in frames} == {"flexlight-render"}
+    assert all(s.parent is None for s in encodes + frames)
+    assert [s.attrs["seq"] for s in sends] == seqs
+    assert all(s.thread != "flexlight-render" for s in sends)
+    encoded = [s.attrs["seq"] for s in encodes]
+    assert encoded == sorted(set(encoded))          # one encode a frame, in order
+    # the first frame waited for began its encode after the profiler started
+    assert set(seqs) <= set(encoded)
 
 
 def test_stop_joins_the_threads():
