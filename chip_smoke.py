@@ -427,8 +427,9 @@ def ptxas_usage(log: str):
 
 
 def decode_png(data: bytes):
-    """[H, W, 3] uint8 of a PNG as utils.image.png_bytes writes it (zlib,
-    filter 0 on every row); fails on any other PNG."""
+    """[H, W, 3] uint8 of a PNG as utils.image.png_bytes or png_bytes_parts
+    writes it (its IDATs joined into one zlib stream, filter 0 on every
+    row); fails on any other PNG."""
     import struct
     import zlib
 

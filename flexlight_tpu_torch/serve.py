@@ -29,9 +29,14 @@ One render thread owns the device (frames are rendered continuously,
 honoring ``renderer.fps_limit``); HTTP handlers only swap the latest PNG
 bytes and mutate IO state, so the device is never touched concurrently.
 
+The render thread deflates each frame's PNG in row parts on the server's
+thread pool (utils.image.png_bytes_parts; as many parts as the frame's
+height and the process's CPUs allow, utils.image.png_parts) and publishes
+the frame when its PNG is whole.
+
 Traced (utils.timing: while a torch profiler records), the render
-thread's PNG encode of a frame is the span fl.serve.encode {seq}, and a
-handler's send of it fl.serve.send {seq}.
+thread's PNG encode of a frame is the span fl.serve.encode {seq, parts},
+and a handler's send of it fl.serve.send {seq}.
 
 Usage:
     server = FrameServer(engine, port=8764)
@@ -50,9 +55,10 @@ from __future__ import annotations
 import json
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .utils.image import png_bytes
+from .utils.image import MAX_PNG_PARTS, png_bytes_parts, png_parts
 from .utils.timing import span
 
 _VIEWER_HTML = """<!doctype html>
@@ -152,6 +158,7 @@ class FrameServer:
         self._stop = threading.Event()
         self._httpd = None
         self._threads = []
+        self._png_pool = None        # the PNG encode's row parts, start() to stop()
         # /config mutations queue here; the render thread (the only
         # device user) applies them between frames
         self._pending_config = {}
@@ -165,6 +172,7 @@ class FrameServer:
         self._httpd = ThreadingHTTPServer((self.host, self.port), handler)
         self.port = self._httpd.server_address[1]
         self._stop.clear()
+        self._png_pool = ThreadPoolExecutor(MAX_PNG_PARTS, thread_name_prefix="flexlight-png")
         self._threads = [
             threading.Thread(target=self._render_loop, name="flexlight-render", daemon=True),
             threading.Thread(target=self._httpd.serve_forever, name="flexlight-http",
@@ -181,6 +189,8 @@ class FrameServer:
             self._httpd.server_close()
         for t in self._threads:
             t.join(timeout=10.0)
+        if self._png_pool is not None:
+            self._png_pool.shutdown()
 
     def wait_for_frame(self, seq: int = 1, timeout: float = 300.0) -> bool:
         """Block until at least `seq` frames have been served (tests)."""
@@ -272,8 +282,10 @@ class FrameServer:
             io.update()  # integrate held keys into the camera (io.js:51-59)
             frame = fetch()
             seq = self._seq + 1          # only this thread writes _seq
-            with span("fl.serve.encode", seq=seq):
-                data = png_bytes(frame, level=1)  # fast encode: live view
+            parts = png_parts(frame.shape[0])
+            with span("fl.serve.encode", seq=seq, parts=parts):
+                # fast encode: live view
+                data = png_bytes_parts(frame, parts, self._png_pool, level=1)
             with self._lock:
                 self._seq = seq
                 self._latest = (seq, data)

@@ -28,7 +28,9 @@ class FrameMetrics:
     """Bounded ring of per-frame metric records with an optional JSONL
     sink. Records are plain dicts so callers can extend them freely."""
 
-    def __init__(self, capacity: int = 240):
+    # 2048 records: a minute of frames at 30 fps, so a reader after a
+    # minute-long run (the benchmark's served cell) still finds its start
+    def __init__(self, capacity: int = 2048):
         self.records = deque(maxlen=capacity)
         self._fh = None
 

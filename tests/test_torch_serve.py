@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 import flexlight_tpu_torch as port
 from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.serve import FrameServer
-from flexlight_tpu_torch.utils import timing
+from flexlight_tpu_torch.utils import image, timing
 
 
 def _tiny_engine():
@@ -58,8 +58,9 @@ def _post(url, obj):
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """[H, W, 3] uint8 of a PNG that utils.image.png_bytes wrote (one IDAT,
-    filter 0 on every row)."""
+    """[H, W, 3] uint8 of a PNG that utils.image.png_bytes or
+    png_bytes_parts wrote (its IDATs joined into one zlib stream, filter 0
+    on every row)."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     pos, idat, w, h = 8, b"", 0, 0
     while pos < len(data):
@@ -241,12 +242,33 @@ def test_frame_seq_header_and_served_counters(server):
     assert set(seqs) <= set(encoded)
 
 
+def test_encode_span_counts_parts(server):
+    """Traced, each frame's fl.serve.encode carries the row parts its PNG
+    was deflated in (utils.image.png_parts of the frame's height): one
+    for the 24-row frame, whose PNG is then png_bytes's."""
+    srv, url = server
+    timing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert srv.wait_for_frame(srv._seq + 2)
+        spans = timing.recorded()
+    finally:
+        timing.reset()
+    encodes = [s for s in spans if s.name == "fl.serve.encode"]
+    assert encodes
+    assert all(s.attrs["parts"] == image.png_parts(24) == 1 for s in encodes)
+    _, _, body = _get(url + "frame.png")
+    assert body == image.png_bytes(decode_png(body), level=1)
+
+
 def test_stop_joins_the_threads():
     srv = FrameServer(_tiny_engine())
     srv.start()
     assert srv.wait_for_frame(1, timeout=120.0)
     srv.stop()
     assert not any(t.is_alive() for t in srv._threads)
+    with pytest.raises(RuntimeError):    # the PNG pool is shut down
+        srv._png_pool.submit(int)
 
 
 # --------------------------------------------------------------------------
