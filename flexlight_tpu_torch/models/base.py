@@ -106,6 +106,11 @@ class Renderer:
         """Render one frame; returns [H, W, 3] float32 in [0, 1]."""
         return self._render_fetch(as_u8=False)
 
+    def render_frame_u8(self) -> np.ndarray:
+        """Like render_frame, quantized to uint8 on the device (the
+        reference's RGBA8 canvas store)."""
+        return self._render_fetch(as_u8=True)
+
     def _render_device(self) -> torch.Tensor:
         """Render one frame and return it on the device, [H, W, 3] f32."""
         raise NotImplementedError

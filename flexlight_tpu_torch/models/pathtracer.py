@@ -276,11 +276,6 @@ class PathTracer(Renderer):
             self._prepared_shape = shape
             self._pending_display = []
 
-    def render_frame_u8(self) -> np.ndarray:
-        """Like render_frame, quantized to uint8 on the device (the
-        reference's RGBA8 canvas store)."""
-        return self._render_fetch(as_u8=True)
-
     def _render_device(self) -> torch.Tensor:
         scheme = self.resolved_scheme()
         if self._halt:

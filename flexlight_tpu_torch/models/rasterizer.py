@@ -35,6 +35,7 @@ from ..ops.pathtrace import camera_rays, inverse_view, scheme_casts
 from ..post.common import quantize_rgba8, reinhard_gamma
 from ..post.taa import Jitter, TAAState, taa_apply, taa_history
 from ..utils.debug import assert_finite
+from ..utils.timing import span
 from .base import Renderer
 from .pathtracer import KERNELS, KernelSet
 
@@ -176,7 +177,9 @@ def raster_frame(buffers, cam_pos, view, taa_state: TAAState | None, width: int,
     """One frame: (display [H, W, 3] in [0, 1], TAA state). `cam_pos` and
     `view` come from the camera (host arrays); `layers` translucent hit
     layers are extracted a pixel and blended in draw order (1: the closest
-    hit alone)."""
+    hit alone). Traced: each layer's fl.raster.cast {layer} and
+    fl.raster.shade {layer} (its shadow casts included), fl.raster.blend
+    and fl.aa."""
     dev = buffers.geometry.device
     cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     world_geom = world_geometry(buffers)
@@ -193,8 +196,10 @@ def raster_frame(buffers, cam_pos, view, taa_state: TAAState | None, width: int,
     o = origin
     cum = torch.zeros(origin.shape[0], dtype=torch.float32, device=dev)
     for layer in range(layers):
-        hit = traverse_fn(o, direction)
-        rgb_l, a_l = _shade(buffers, cam_pos, hit, shadow_fn, config)
+        with span("fl.raster.cast", layer=layer):
+            hit = traverse_fn(o, direction)
+        with span("fl.raster.shade", layer=layer):
+            rgb_l, a_l = _shade(buffers, cam_pos, hit, shadow_fn, config)
         dist_l = cum + hit[0]
         layers_data.append((dist_l, hit[3], rgb_l, a_l, hit[3] != -1))
         if layer + 1 < layers:
@@ -206,25 +211,28 @@ def raster_frame(buffers, cam_pos, view, taa_state: TAAState | None, width: int,
         rgb = torch.where(covered[:, None], rgb_l, 0.0)
         a = torch.where(covered, a_l, 0.0)
     else:
-        rgb, a = _blend_layers(layers_data)
+        with span("fl.raster.blend"):
+            rgb, a = _blend_layers(layers_data)
     display = rgb.reshape(height, width, 3)
     alpha_img = a.reshape(height, width)
 
     if config.antialiasing in ("fxaa", "taa"):
-        aa_in = torch.cat([quantize_rgba8(display), quantize_rgba8(alpha_img)[..., None]],
-                          dim=-1)
-        if config.antialiasing == "fxaa":
-            display = kernels.fxaa(aa_in)[..., 0:3]
-        else:
-            out, taa_state = taa_apply(taa_state, aa_in)
-            display = out[..., 0:3]
+        with span("fl.aa"):
+            aa_in = torch.cat([quantize_rgba8(display),
+                               quantize_rgba8(alpha_img)[..., None]], dim=-1)
+            if config.antialiasing == "fxaa":
+                display = kernels.fxaa(aa_in)[..., 0:3]
+            else:
+                out, taa_state = taa_apply(taa_state, aa_in)
+                display = out[..., 0:3]
     return torch.clamp(display, 0.0, 1.0), taa_state
 
 
 class Rasterizer(Renderer):
     """The rasterizer with the reference's surface, on one explicit torch
     device. `layers` (default 4) is the most translucent layers blended a
-    pixel; a scene without translucent material renders 1."""
+    pixel; a scene without translucent material renders 1. Traced, a
+    frame's raster_frame is the span fl.raster {scheme, layers}."""
 
     type = "rasterizer"
     # from this many triangles on, "auto" takes the sparse worklist casts
@@ -295,10 +303,12 @@ class Rasterizer(Renderer):
         if self.config.antialiasing == "taa":
             jitter = self._jitter.next(self.width, self.height)
         view = self.camera.view_matrix(self.width, self.height, jitter)
-        display, self._taa_state = raster_frame(
-            self._buffers, self.camera.position, view, self._taa_state, self.width,
-            self.height, self.config, scheme=self.resolved_scheme(), tile=self.tile,
-            layers=self.resolved_layers(), kernels=self.kernels)
+        scheme, layers = self.resolved_scheme(), self.resolved_layers()
+        with span("fl.raster", scheme=scheme, layers=layers):
+            display, self._taa_state = raster_frame(
+                self._buffers, self.camera.position, view, self._taa_state, self.width,
+                self.height, self.config, scheme=scheme, tile=self.tile, layers=layers,
+                kernels=self.kernels)
         assert_finite((display, self._taa_state), "rasterizer.frame")
         self._frame_count += 1
         return display

@@ -270,17 +270,14 @@ class FrameServer:
         while not self._stop.is_set():
             self._apply_pending()  # /config mutations land between frames
             renderer = self.engine.renderer  # may have been hot-swapped
-            # the u8 frame is quantized on the device when the renderer
-            # offers it (4x less fetch traffic); others fetch f32.
-            # pipelined = swapchain fetch: the device->host copy of frame
-            # N-k overlaps the work of the frames after it
-            # (models.pathtracer.PathTracer.pipelined).
+            # the u8 frame is quantized on the device (4x less fetch
+            # traffic than f32). pipelined = swapchain fetch: the
+            # device->host copy of frame N-k overlaps the work of the
+            # frames after it (models.pathtracer.PathTracer.pipelined).
             if hasattr(renderer, "pipelined"):
                 renderer.pipelined = 4
-            fetch = getattr(renderer, "render_frame_u8",
-                            renderer.render_frame)
             io.update()  # integrate held keys into the camera (io.js:51-59)
-            frame = fetch()
+            frame = renderer.render_frame_u8()
             seq = self._seq + 1          # only this thread writes _seq
             parts = png_parts(frame.shape[0])
             with span("fl.serve.encode", seq=seq, parts=parts):
