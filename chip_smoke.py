@@ -101,14 +101,19 @@ Phases, one line each (any failure exits non-zero):
      and render_frame(): (a) the engine's default renderer, the
      Rasterizer, with the default Config (FXAA) on theater at 1080p; "auto"
      must resolve to "kernel", and each frame must launch closest_hit once
-     a layer, any_hit once a light and layer and FXAA once, its frames
+     a layer, any_hit once a light and layer and FXAA once, and the
+     shading kernels of csrc/raster.cu (raster_surface and raster_shade
+     once a layer, raster_rays once a light and layer), its frames
      against the same frames through the plain versions (the golden budget,
      and identical: the kernels are bit-exact, so one differing value
-     fails, as in (b) and (c)); (b) the
+     fails, as in (b) and (c)); then each shading kernel against its plain
+     version on every call of the first plain frame (identical), each call
+     timed beside its bound; (b) the
      Rasterizer on the dragon stand-in at half size (960x540), 2 frames:
      "auto" must resolve to "sparse" (unsorted casts: the flags once a cast,
      closest hit once a layer, any hit once a light and layer, the key
-     never), against its plain frames; (c) the PathTracer on theater at
+     never; the shading kernels as in (a)), against its plain frames; (c)
+     the PathTracer on theater at
      1080p with antialiasing="taa", 11 frames so that the 9-frame history
      wraps, on "fused_split" (PRE 1x, POST 5x, the filter passes, no
      FXAA), against its plain frames; (d) api="simple" on theater at 1080p,
@@ -190,7 +195,10 @@ and their counts on phase 11's paths (mxu_, clustered_, raster_mxu_,
 raster_clustered_launches, and ranks_launches: rank 0's over its 3
 sharded frames);
 the disc passes' ms and bound_ms are the theater frame's first call's,
-frame_ms and frame_bound_ms the sums over its calls of that pass), the
+frame_ms and frame_bound_ms the sums over its calls of that pass; the
+rasterizer's shading kernels' ms, plain_ms and bound_ms are phase 9 (a)'s
+first call's (layer 0, light 0), frame_ms, frame_plain_ms and
+frame_bound_ms the sums over the frame's 4 + 36 + 4 calls), the
 card's name and power limit, and a last line {"ok": true, "device": {...}}.
 """
 
@@ -271,6 +279,21 @@ STEP_WORDS = (28, 46)
 MAT_C = 49
 OPS_DISC_TAP = {"first_blur": 4, "second_blur": 10, "final_blur": 10}  # what every tap runs
 OPS_FXAA_PIXEL = 39      # fxaa.cu: the 3x3 luma test every pixel runs
+# raster.cu, per pixel: the surface (the weights 2, the local position 15,
+# its rotation 15 and shift 3); a light's shadow ray (the vector 3, its
+# length 6, the clamp and the 3 divides); the shade outside its textures
+# and lights: the weights and local position 17, the normal (15, its
+# rotation 15, the normalize 10), the texture coordinates 10, the ambient
+# 3, the view vector 13 and the epilogue (albedo 3, peak 2, fade 3, blend
+# 12, clamp 3, alpha 2), under hdr Reinhard + gamma 7 a channel; per light
+# the light vector 3, fl_forward_trace 130, its zero test 7 and the
+# strength test (the sums of a light that adds are data-dependent and
+# count none); each texture as OPS_TEX_*
+OPS_RASTER_SURFACE = 35
+OPS_RASTER_RAY = 13
+OPS_RASTER_SHADE = 108
+OPS_RASTER_HDR = 21
+OPS_RASTER_LIGHT = 141
 # sparse.cu: one slab test of a ray against a box (fl_slab_entry) is per
 # axis two subtracts, two multiplies, a min and a max, and two to fold the
 # axes in (the first axis folds none): 22; a tile flag adds entry =
@@ -309,6 +332,14 @@ OPS_REC_UV = 17
 OPS_REC_DIVIDE = 4
 # a pair that an any hit accepts passes every reject and the window's 7 compares
 OPS_REC_ACCEPT = OPS_REC_DET + OPS_REC_SDET[False] + 2 * (OPS_REC_UV + 1) + OPS_REC_DIVIDE + 7
+
+
+def raster_shading(raster) -> dict:
+    """The shading launches of one rasterizer frame: every scheme shades a
+    hit layer in csrc/raster.cu, a surface and a shade launch a layer and
+    a ray launch a light and layer."""
+    layers, n_lights = raster.resolved_layers(), raster._buffers.lights.shape[0]
+    return {"raster_surface": layers, "raster_rays": layers * n_lights, "raster_shade": layers}
 
 
 def fail(msg: str) -> None:
@@ -1025,7 +1056,8 @@ def casts_and_ranks_phase(args, dev, smi: str, engine, dragon_engine, tools) -> 
     e.renderer.scheme = "mxu"
     layers = e.renderer.resolved_layers()
     frames, counts, frame_ms, peak = tools.drive_frames("raster-mxu", e.renderer, n)
-    tools.expect_launches("the rasterizer on scheme='mxu'", counts, n, dict(off, fxaa=1))
+    tools.expect_launches("the rasterizer on scheme='mxu'", counts, n,
+                          dict(off, fxaa=1, **raster_shading(e.renderer)))
     differ = sum(int((a != b).any(axis=-1).sum()) for a, b in zip(frames, ref))
     print(f"[raster-mxu] theater {w2}x{h2}, {layers} layers: against the scheme 'kernel' "
           f"frames: tolerance: identical; {differ} pixels differ -> "
@@ -1040,7 +1072,8 @@ def casts_and_ranks_phase(args, dev, smi: str, engine, dragon_engine, tools) -> 
     e.renderer.scheme = "clustered"
     layers = e.renderer.resolved_layers()
     frames, counts, frame_ms, peak = tools.drive_frames("raster-clustered", e.renderer, 1)
-    tools.expect_launches("the rasterizer on scheme='clustered'", counts, 1, dict(off, fxaa=1))
+    tools.expect_launches("the rasterizer on scheme='clustered'", counts, 1,
+                          dict(off, fxaa=1, **raster_shading(e.renderer)))
     differ = int((frames[0] != ref[0]).any(axis=-1).sum())
     share = differ / (w2 * h2)
     print(f"[raster-clustered] dragon stand-in {w2}x{h2}, {layers} layers: against the "
@@ -1258,6 +1291,7 @@ def drive(args, dev, smi: str) -> int:
     in_place = ("sp_pre", "sp_post", "shade", "interp_shade")
     traversal = ("closest_hit", "any_hit")
     disc_names = ("first_blur", "second_blur", "final_blur")
+    raster_names = ("raster_surface", "raster_rays", "raster_shade")
 
     # ---- the frames of phases 4-11, through the user's entry points ---------
     # every kernel wrapper with its count: the KernelSet's and the lists of
@@ -1462,7 +1496,8 @@ def drive(args, dev, smi: str) -> int:
                kernels=PLAIN._replace(sp_pre=sp_pre_resample)).render_frame()
     del tracer
     missing = [n for n in KernelSet._fields
-               if n not in captured and n not in sparse_names + disc_names + ("fused_frame",)]
+               if n not in captured
+               and n not in sparse_names + disc_names + raster_names + ("fused_frame",)]
     if missing or len(resample) != 1:
         fail(f"the frames did not reach {missing or 'a resampling PRE'}")
     calls = {n: len(captured[n]) for n in in_place + traversal}
@@ -2366,8 +2401,8 @@ def drive(args, dev, smi: str) -> int:
     frames, kernel_launches = drive_frames(f"kernel-path, theater {w2}x{h2}", e.renderer,
                                            n2)[:2]
     idle = [name for name, c in kernel_launches.items()
-            if c == 0 and name not in in_place + sparse_names + ("fused_frame", "sp_live_list",
-                                                                 "alive_list")]
+            if c == 0 and name not in in_place + sparse_names + raster_names
+            + ("fused_frame", "sp_live_list", "alive_list")]
     if idle:
         fail(f"kernels not launched on the scheme='kernel' path: {idle}")
     check_frames("kernel-path", frames, plain_frames, (h2, w2, 3))
@@ -2505,18 +2540,77 @@ def drive(args, dev, smi: str) -> int:
           f"'auto' resolves to {scheme!r}, {layers} layers, {n_lights} lights", flush=True)
     if scheme != "kernel":
         fail("the rasterizer on theater must take scheme='kernel'")
-    plain = Rasterizer(w, h, e.scene, e.camera, raster_config, dev, kernels=PLAIN)
+    shading = raster_shading(raster)
+    # the first plain frame's calls of the shading kernels, recorded before
+    # each call
+    raster_calls = {name: [] for name in raster_names}
+
+    def raster_call(name):
+        def rec(*a):
+            if len(raster_calls[name]) < shading[name]:
+                raster_calls[name].append(clone(a))
+            return getattr(PLAIN, name)(*a)
+        return rec
+
+    plain = Rasterizer(w, h, e.scene, e.camera, raster_config, dev,
+                       kernels=PLAIN._replace(**{n: raster_call(n) for n in raster_names}))
     plain_frames = [torch.from_numpy(plain.render_frame()) for _ in range(args.frames)]
     del plain
     frames, raster_launches, frame_ms, peak = drive_frames("raster", raster, args.frames)
     expect_launches("the rasterizer on theater", raster_launches, args.frames,
                     {"closest_hit": layers, "any_hit": layers * n_lights, "fxaa": 1,
                      "sparse_flags": 0, "sparse_key": 0, "sparse_closest": 0,
-                     "sparse_any": 0, "sp_pre": 0, "sp_post": 0})
+                     "sparse_any": 0, "sp_pre": 0, "sp_post": 0, **shading})
     check_frames("raster", frames, plain_frames, (h, w, 3))
     expect_identical("raster", frames, plain_frames)
     device_busy("rasterizer-theater-1080p", raster, frame_ms, peak)
     del frames, plain_frames, e, raster
+    torch.cuda.empty_cache()
+
+    def scene_bytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def raster_bound(name, a):
+        """The least time of one shading-kernel call: its per-pixel streams
+        and the scene tables it gathers, each read once, beside its
+        operations (OPS_RASTER_*; a texture's by its triangles' numbers)."""
+        if name == "raster_surface":
+            geometry, rotations, shifts, hu = a[:4]
+            n = hu.shape[0]
+            return bound(n * 24 + scene_bytes(geometry, rotations, shifts),
+                         n * OPS_RASTER_SURFACE)
+        if name == "raster_rays":
+            n = a[0].shape[1]
+            return bound(n * 28 + 12, n * OPS_RASTER_RAY)
+        (geometry, attributes, rotations, alb, pbr, tpo, lights, ambient, cam, hu, _, slot,
+         _, hdr) = a
+        n, n_l = hu.shape[0], lights.shape[0]
+        tri = torch.clamp_min(slot, 0).long()
+        ops = n * (OPS_RASTER_SHADE + (OPS_RASTER_HDR if hdr else 0) + n_l * OPS_RASTER_LIGHT)
+        for k, table in enumerate((alb, pbr, tpo)):
+            fetched = int((attributes[tri, 15 + k] != -1.0).sum())
+            per = OPS_TEX_FETCH + (OPS_TEX_U8 if table.texels.dtype == torch.uint8 else 0)
+            ops += n * OPS_TEX_MISS + fetched * per
+        nbytes = (n * (12 + n_l + 16) + scene_bytes(geometry, attributes, rotations, lights,
+                                                     ambient, cam, *alb, *pbr, *tpo))
+        return bound(nbytes, ops)
+
+    # each shading kernel against its plain version on every call of the
+    # frame (layer by layer, a light at a time), timed: the first call's
+    # row, the frame's sums beside it
+    for name in raster_names:
+        sums = [0.0, 0.0, 0.0]
+        for i, a in enumerate(raster_calls[name]):
+            label = (f"theater {w}x{h}, layer {i // n_lights}, light {i % n_lights}"
+                     if name == "raster_rays" else f"theater {w}x{h}, layer {i}")
+            bnd = raster_bound(name, a)
+            k_ms, p_ms = check(name, label, a, bnd, main=i == 0)
+            sums = [sums[0] + k_ms, sums[1] + p_ms, sums[2] + bnd[0]]
+        results[name].update(frame_ms=sums[0], frame_plain_ms=sums[1], frame_bound_ms=sums[2])
+        print(f"[kernel] {name}: {len(raster_calls[name])} calls a frame, kernel "
+              f"{sums[0]:.3f} ms, plain {sums[1]:.3f} ms, bound {sums[2]:.4f} ms a frame",
+              flush=True)
+    del raster_calls
     torch.cuda.empty_cache()
 
     # (b) the rasterizer on the dragon stand-in (sparse, glass: 4 layers)
@@ -2536,7 +2630,7 @@ def drive(args, dev, smi: str) -> int:
     expect_launches("the rasterizer on the dragon stand-in", raster_sparse_launches, n2,
                     {"sparse_flags": layers * (1 + n_lights), "sparse_closest": layers,
                      "sparse_any": layers * n_lights, "sparse_key": 0, "fxaa": 1,
-                     "closest_hit": 0, "any_hit": 0})
+                     "closest_hit": 0, "any_hit": 0, **raster_shading(raster)})
     device_busy("rasterizer-dragon-540p", raster, frame_ms, peak, step=animate)
     de, step = dragon_engine(w2, h2)
     plain = Rasterizer(w2, h2, de.scene, de.camera, raster_config, dev, kernels=PLAIN)
@@ -2617,6 +2711,8 @@ def drive(args, dev, smi: str) -> int:
     launches["shade"] = shade_launches["shade"]
     results["shade"].update(list_launches=shade_launches["sp_live_list"])
     launches["fused_frame"] = fused_launches["fused_frame"]
+    for name in raster_names:
+        launches[name] = raster_launches[name]
     kernels = []
     for name, k in counted:
         # the rasterizer's launches (phase 9) beside the count of each row's own path

@@ -34,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "flexlight_kernels"
-SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu", "sparse.cu", "shade.cu")
+SOURCES = ("intersect.cu", "disc_filter.cu", "fxaa.cu", "fused.cu", "sparse.cu", "shade.cu",
+           "raster.cu")
 HEADERS = ("common.cuh", "trace.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
@@ -89,6 +90,15 @@ SIGNATURES = {
     # state, req, ndc, mat, atlas, lights, n_lights, cam, seed, cos_sample_n,
     # bounce, counter, min_importance, n, list, count (fl_alive_list's), stream
     "fl_interp_shade": [_P] * 6 + [_I] + [_P] * 3 + [_I, _I, _F, _I, _P, _P, _P],
+    # geometry, rotations, shifts, hu, hv, slot, n, origin, stream
+    "fl_raster_surface": [_P] * 6 + [_I, _P, _P],
+    # origin, light, n, rays, stream
+    "fl_raster_rays": [_P, _P, _I, _P, _P],
+    # geometry, attributes, rotations, then per atlas (albedo, pbr, tpo)
+    # texels, u8, tile_info, n_slots, meta; lights, n_lights, ambient, cam,
+    # hu, hv, slot, shadowed, hdr, n, rgb, alpha, stream
+    "fl_raster_shade": [_P] * 3 + [_P, _I, _P, _I, _P] * 3 + [_P, _I] + [_P] * 6
+                       + [_I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

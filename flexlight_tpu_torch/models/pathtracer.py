@@ -37,6 +37,7 @@ from ..ops.intersect_kernel import any_hit, closest_hit
 from ..ops.intersect_sparse_kernel import (sparse_any, sparse_closest, sparse_flags,
                                            sparse_key)
 from ..ops.pathtrace import render_mrt
+from ..ops.raster_kernel import raster_rays, raster_shade, raster_surface
 from ..ops.shade_kernel import interp_shade, shade
 from ..post.common import quantize_rgba8, split_hdr
 from ..post.filter_kernel import (final_blur, final_filter_packed, first_blur,
@@ -51,7 +52,9 @@ from .base import Renderer
 
 
 class KernelSet(NamedTuple):
-    """The kernels one frame launches, by role."""
+    """The kernels one frame launches, by role. The rasterizer takes the
+    same set: its casts, FXAA, and its shading of a hit layer
+    (raster_surface, raster_rays, raster_shade: ops.raster_kernel)."""
     closest_hit: Callable
     any_hit: Callable
     first_blur: Callable
@@ -67,11 +70,15 @@ class KernelSet(NamedTuple):
     shade: Callable
     interp_shade: Callable
     fused_frame: Callable
+    raster_surface: Callable
+    raster_rays: Callable
+    raster_shade: Callable
 
 
 KERNELS = KernelSet(closest_hit, any_hit, first_blur, second_blur, final_blur,
                     fxaa_cuda, sp_pre, sp_post, sparse_flags, sparse_key, sparse_closest,
-                    sparse_any, shade, interp_shade, fused_frame)
+                    sparse_any, shade, interp_shade, fused_frame, raster_surface, raster_rays,
+                    raster_shade)
 PLAIN = KernelSet(*(k.plain for k in KERNELS))
 
 

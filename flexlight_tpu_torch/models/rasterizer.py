@@ -14,7 +14,9 @@ casts of ops.traverse, "mxu" and "clustered" those of ops.traverse_mxu and
 ops.traverse_clustered (the primaries with the relaxed edge -BIAS, as
 flexlight_tpu/models/rasterizer.py:147-153, 193-199 wires them). "auto"
 takes flexlight_tpu's rule on a chip on every device: "sparse" from 4096
-triangles, else "kernel".
+triangles, else "kernel". Every scheme shades a hit layer in the kernel
+set's three shading kernels (ops.raster_kernel, csrc/raster.cu; their
+plain versions on the CPU), around its own shadow casts.
 
 Reference quirks kept: forwardTrace gets the light vector from the local
 (untransformed) position and the view vector camera - localPosition
@@ -26,13 +28,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import _native
 from ..ops import vec3 as v3
-from ..ops.brdf import forward_trace, normalize
-from ..ops.buffers import fetch_tex_val_table
 from ..ops.geometry import world_geometry
 from ..ops.intersect import BIAS
 from ..ops.pathtrace import camera_rays, inverse_view, scheme_casts
-from ..post.common import quantize_rgba8, reinhard_gamma
+from ..post.common import quantize_rgba8
 from ..post.taa import Jitter, TAAState, taa_apply, taa_history
 from ..utils.debug import assert_finite
 from ..utils.timing import span
@@ -40,71 +41,28 @@ from .base import Renderer
 from .pathtracer import KERNELS, KernelSet
 
 
-def _bary(rows: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor:
-    """sum_v rows[:, v] * uvw[:, v] over the three vertices: rows [N, 3, C]."""
-    return rows[:, 0] * uvw[:, 0:1] + rows[:, 1] * uvw[:, 1:2] + rows[:, 2] * uvw[:, 2:3]
-
-
-def _rotate(rot: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """rot [N, 3, 3] @ p [N, 3]."""
-    return rot[:, :, 0] * p[:, 0:1] + rot[:, :, 1] * p[:, 1:2] + rot[:, :, 2] * p[:, 2:3]
-
-
-def _tex(table, bary, attr, num_col: int, default_cols: slice) -> torch.Tensor:
-    default = attr[:, default_cols]
-    return torch.stack(fetch_tex_val_table(table, bary[:, 0], bary[:, 1], attr[:, num_col],
-                                           (default[:, 0], default[:, 1], default[:, 2])),
-                       dim=-1)
-
-
-def _shade(buffers, cam_pos, hit, shadow_fn, config):
+def _shade(buffers, cam_pos, hit, shadow_fn, config, kernels: KernelSet):
     """Shade one primary-visibility layer (rasterizer_fragment.glsl main):
-    per-light Cook-Torrance and shadow rays, translucency fade, Reinhard.
+    per-light Cook-Torrance and shadow rays, translucency fade, Reinhard,
+    in the kernel set's three roles (ops.raster_kernel) around the
+    scheme's shadow casts: raster_surface (the rays' origin), then a
+    light at a time raster_rays and its shadow cast, then raster_shade.
     `hit` is (s, u, v, slot) of [N]. Returns (rgb [N, 3] clamped, alpha
     [N]), the fragment shader's vec4(finalColor, 1 - 0.5 * tpo.x)
     (glsl:291)."""
     _, hu, hv, slot = hit
-    n = hu.shape[0]
-    tri = torch.clamp_min(slot, 0).long()
-    uvw = torch.stack([1.0 - hu - hv, hu, hv], dim=-1)
-    geom = buffers.geometry[tri]
-    t_idx = geom[:, 9].long()
-    rot_f = buffers.rotations[t_idx][:, 0]
-    shift_f = buffers.shifts[t_idx][:, 0]
-    # local position: barycentric over the untransformed vertices (the
-    # vertex shader's varying `position`), world = R p + shift (glsl:228)
-    local_pos = _bary(geom[:, 0:9].reshape(n, 3, 3), uvw)
-    world_pos = _rotate(rot_f, local_pos) + shift_f
-
-    attr = buffers.attributes[tri]
-    smooth_normal = normalize(_rotate(rot_f, _bary(attr[:, 0:9].reshape(n, 3, 3), uvw)))
-    bary = _bary(attr[:, 9:15].reshape(n, 3, 2), uvw)
-    albedo = _tex(buffers.albedo_tab, bary, attr, 15, slice(18, 21))
-    rme = _tex(buffers.pbr_tab, bary, attr, 16, slice(21, 24))
-    tpo = _tex(buffers.tpo_tab, bary, attr, 17, slice(24, 27))
-
-    final = rme[:, 2:3] + buffers.ambient[None, :]
-    v = normalize(cam_pos[None, :] - local_pos)
+    hu, hv, slot = hu.contiguous(), hv.contiguous(), slot.contiguous()
+    origin = kernels.raster_surface(buffers.geometry, buffers.rotations, buffers.shifts, hu, hv,
+                                    slot)
+    flags = []
     for j in range(buffers.lights.shape[0]):
-        light = buffers.lights[j, 0]
-        strength = buffers.lights[j, 1, 0]
-        local_color = forward_trace(albedo, rme, light[None, :] - local_pos, strength,
-                                    smooth_normal, v)
-        show = v3.norm3(v3.unstack3(local_color)) == 0.0
-        d = light[None, :] - world_pos
-        dist = v3.norm3(v3.unstack3(d))
-        shadowed = shadow_fn(world_pos, d / torch.clamp_min(dist, 1e-30)[:, None], dist)
-        add = (strength > 0.0) & (show | ~shadowed)
-        final = torch.where(add[:, None], final + local_color, final)
-
-    final = final * albedo
-    peak = final.amax(dim=-1)
-    t_factor = torch.clamp_max(1.0 + peak - tpo[:, 0], 1.0)[:, None]
-    final = albedo * albedo + (final - albedo * albedo) * t_factor
-    if config.hdr:
-        final = reinhard_gamma(final)
-    alpha = 1.0 - 0.5 * tpo[:, 0]
-    return torch.clamp(final, 0.0, 1.0), alpha
+        rays = kernels.raster_rays(origin, buffers.lights, j)
+        flags.append(shadow_fn(origin.T, rays[:3].T, rays[3]))
+    shadowed = torch.stack(flags) if flags else hu.new_zeros((0, hu.shape[0]), dtype=torch.bool)
+    return kernels.raster_shade(buffers.geometry, buffers.attributes, buffers.rotations,
+                                buffers.albedo_tab, buffers.pbr_tab, buffers.tpo_tab,
+                                buffers.lights, buffers.ambient, cam_pos, hu, hv, slot, shadowed,
+                                config.hdr)
 
 
 # static compare-swap networks sorting k layers by draw order
@@ -199,7 +157,7 @@ def raster_frame(buffers, cam_pos, view, taa_state: TAAState | None, width: int,
         with span("fl.raster.cast", layer=layer):
             hit = traverse_fn(o, direction)
         with span("fl.raster.shade", layer=layer):
-            rgb_l, a_l = _shade(buffers, cam_pos, hit, shadow_fn, config)
+            rgb_l, a_l = _shade(buffers, cam_pos, hit, shadow_fn, config, kernels)
         dist_l = cum + hit[0]
         layers_data.append((dist_l, hit[3], rgb_l, a_l, hit[3] != -1))
         if layer + 1 < layers:
@@ -232,7 +190,9 @@ class Rasterizer(Renderer):
     """The rasterizer with the reference's surface, on one explicit torch
     device. `layers` (default 4) is the most translucent layers blended a
     pixel; a scene without translucent material renders 1. Traced, a
-    frame's raster_frame is the span fl.raster {scheme, layers}."""
+    frame's raster_frame is the span fl.raster {scheme, layers, shade}:
+    `shade` is "kernel" where the layers are shaded in csrc/raster.cu's
+    kernels (CUDA tensors through the kernel wrappers), else "plain"."""
 
     type = "rasterizer"
     # from this many triangles on, "auto" takes the sparse worklist casts
@@ -304,7 +264,9 @@ class Rasterizer(Renderer):
             jitter = self._jitter.next(self.width, self.height)
         view = self.camera.view_matrix(self.width, self.height, jitter)
         scheme, layers = self.resolved_scheme(), self.resolved_layers()
-        with span("fl.raster", scheme=scheme, layers=layers):
+        shade = "kernel" if self.device.type == "cuda" and isinstance(
+            self.kernels.raster_shade, _native.Kernel) else "plain"
+        with span("fl.raster", scheme=scheme, layers=layers, shade=shade):
             display, self._taa_state = raster_frame(
                 self._buffers, self.camera.position, view, self._taa_state, self.width,
                 self.height, self.config, scheme=scheme, tile=self.tile, layers=layers,

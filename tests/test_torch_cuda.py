@@ -103,6 +103,9 @@ def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
 
 
+RASTER_SHADING = ("raster_surface", "raster_rays", "raster_shade")
+
+
 @pytest.mark.parametrize("scheme", ["kernel", "sparse"])
 def test_rasterizer_frame_through_the_kernels_is_the_plain_frame(frame, dev, scheme):
     """A small rasterizer frame (theater, 4 translucent layers, FXAA) on
@@ -119,9 +122,33 @@ def test_rasterizer_frame_through_the_kernels_is_the_plain_frame(frame, dev, sch
     ran = {n for n, k, c in zip(KernelSet._fields, KERNELS, counts) if k.launches > c}
     casts = {"closest_hit", "any_hit"} if scheme == "kernel" else \
         {"sparse_flags", "sparse_closest", "sparse_any"}
-    assert ran == casts | {"fxaa"} and r.resolved_layers() == 4
+    assert ran == casts | {"fxaa"} | set(RASTER_SHADING) and r.resolved_layers() == 4
     assert np.isfinite(img).all() and img.max() > 0
     np.testing.assert_array_equal(img, plain)
+
+
+def test_rasterizer_1080p_frame_shades_in_the_kernels(frame, dev):
+    """theater at 1920x1080 on the engine's default renderer: each frame
+    shades its 4 layers in csrc/raster.cu (a surface and a shade launch a
+    layer, a ray launch a light and layer), and both frames equal the
+    frames of the plain versions bit for bit."""
+    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.models.rasterizer import Rasterizer
+
+    _, _, e, _ = frame
+    plain = Rasterizer(1920, 1080, e.scene, e.camera, Config(), dev, kernels=PLAIN)
+    want = [plain.render_frame() for _ in range(2)]
+    del plain
+    r = Rasterizer(1920, 1080, e.scene, e.camera, Config(), dev)
+    layers, lights = r.resolved_layers(), r._buffers.lights.shape[0]
+    assert r.resolved_scheme() == "kernel" and (layers, lights) == (4, 9)
+    before = [getattr(KERNELS, n).launches for n in RASTER_SHADING]
+    got = [r.render_frame() for _ in range(2)]
+    counts = [getattr(KERNELS, n).launches - b for n, b in zip(RASTER_SHADING, before)]
+    assert counts == [2 * layers, 2 * layers * lights, 2 * layers]
+    for a, b in zip(got, want):
+        assert a.shape == (1080, 1920, 3) and a.max() > 0
+        np.testing.assert_array_equal(a, b)
 
 
 SPARSE = ("sparse_flags", "sparse_key", "sparse_closest", "sparse_any")

@@ -57,7 +57,8 @@ def test_rasterizer_frames_against_the_reference(tmp_path, seed, precision):
 
 @pytest.mark.parametrize("layers", [4, 2])
 def test_each_frame_holds_the_raster_spans(tmp_path, layers):
-    """One fl.raster {scheme, layers} under each fl.frame, and under it
+    """One fl.raster {scheme, layers, shade} under each fl.frame (a CPU
+    frame shades in the plain versions), and under it
     `layers` fl.raster.cast and fl.raster.shade spans (one a layer, in
     order), one fl.raster.blend and one fl.aa."""
     _, _, cfg, _ = tiny(CELL)
@@ -75,7 +76,7 @@ def test_each_frame_holds_the_raster_spans(tmp_path, layers):
         mine = [x for x in spans if x.trace == frame.trace and x is not frame]
         raster, = [x for x in mine if x.name == "fl.raster"]
         assert raster.parent == frame.id
-        assert raster.attrs == {"scheme": "kernel", "layers": layers}
+        assert raster.attrs == {"scheme": "kernel", "layers": layers, "shade": "plain"}
         inner = [x for x in mine if x.parent == raster.id]
         for name in ("fl.raster.cast", "fl.raster.shade"):
             assert [x.attrs["layer"] for x in inner if x.name == name] == list(range(layers))

@@ -67,7 +67,9 @@ PARTS = (("fl_closest_hit", "closest hit"), ("fl_any_hit", "any hit"),
          ("fl_shade", "shade"), ("fl_alive_list", "alive list (interp_shade)"),
          ("fl_interp_shade", "interp_shade"),
          ("fl_disc_first", "disc first"), ("fl_disc_second", "disc second"),
-         ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"))
+         ("fl_disc_final", "disc final"), ("fl_fxaa", "FXAA"),
+         ("fl_raster_surface", "raster surface"), ("fl_raster_rays", "raster shadow rays"),
+         ("fl_raster_shade", "raster shade"))
 OTHER = ("torch ops (shading or texture glue, worklist sort and compaction, temporal, "
          "packing, vote repair)")
 

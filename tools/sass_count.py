@@ -43,7 +43,8 @@ KERNELS = ("fl_closest_hit_kernel", "fl_any_hit_kernel", "fl_disc_first_kernel",
            "fl_disc_second_kernel", "fl_disc_final_kernel", "fl_fxaa_kernel",
            "fl_sparse_flags_kernel", "fl_sparse_key_kernel", "fl_sp_pre_kernel",
            "fl_sp_live_list_kernel", "fl_sp_post_kernel", "fl_fused_frame_kernel",
-           "fl_shade_kernel", "fl_alive_list_kernel", "fl_interp_shade_kernel")
+           "fl_shade_kernel", "fl_alive_list_kernel", "fl_interp_shade_kernel",
+           "fl_raster_surface_kernel", "fl_raster_rays_kernel", "fl_raster_shade_kernel")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
