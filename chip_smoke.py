@@ -499,7 +499,8 @@ def serve_phase(args, dev, engine, counted, device_busy, paths) -> dict:
     import torch
 
     from flexlight_tpu_torch import Camera
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.ops import fused as F
     from flexlight_tpu_torch.ops import fused_kernel as SK
     from flexlight_tpu_torch.ops import pathtrace as P
@@ -867,7 +868,7 @@ def rank_main(rank: int, out_dir: str, width: int, height: int, seed: int, n_fra
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from flexlight_tpu_torch import Config, reset_global_registry
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet
+    from flexlight_tpu_torch.kernels import KERNELS, KernelSet
     from flexlight_tpu_torch.ops.buffers import build_scene_buffers
     from flexlight_tpu_torch.parallel import multihost
     from flexlight_tpu_torch.parallel import tile_sharding as T
@@ -952,7 +953,8 @@ def casts_and_ranks_phase(args, dev, smi: str, engine, dragon_engine, tools) -> 
     import torch.multiprocessing as mp
 
     from flexlight_tpu_torch import Config
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, frame_pipeline
+    from flexlight_tpu_torch.kernels import KERNELS
+    from flexlight_tpu_torch.models.pathtracer import frame_pipeline
     from flexlight_tpu_torch.ops.buffers import build_scene_buffers
     from flexlight_tpu_torch.ops.pathtrace import render_mrt
     from flexlight_tpu_torch.post.taa import taa_history
@@ -1212,7 +1214,8 @@ def drive(args, dev, smi: str) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from flexlight_tpu_torch import Config, _native, reset_global_registry
-        from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+        from flexlight_tpu_torch.kernels import KERNELS, PLAIN, KernelSet
+        from flexlight_tpu_torch.models.pathtracer import PathTracer
         from flexlight_tpu_torch.ops import fused as F
         from flexlight_tpu_torch.ops import fused_kernel as SK
         from flexlight_tpu_torch.ops import shade as H
@@ -2714,7 +2717,7 @@ def drive(args, dev, smi: str) -> int:
     for name in raster_names:
         launches[name] = raster_launches[name]
     kernels = []
-    for name, k in counted:
+    for name, _ in counted:
         # the rasterizer's launches (phase 9) beside the count of each row's own path
         raster = {f"raster_{tag}_launches": c[name] for tag, c in
                   (("theater", raster_launches), ("dragon", raster_sparse_launches))
@@ -2725,8 +2728,7 @@ def drive(args, dev, smi: str) -> int:
         for tag, c in slice_launches.items():
             if c.get(name):
                 raster[f"{tag}_launches"] = c[name]
-        kernels.append({"name": name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "launches": launches[name],
+        kernels.append({"name": name, "route": "cuda", "launches": launches[name],
                         **results[name], **raster})
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -241,12 +241,10 @@ class Kernel:
     outputs and calls the C entry point; `run` launches and counts, for a
     wrapper that launches another kernel before its own."""
 
-    def __init__(self, name: str, plain, launch, source: str, replaces: str):
+    def __init__(self, name: str, plain, launch):
         self.name = name
         self.plain = plain
         self.launch = launch
-        self.source = source
-        self.replaces = replaces
         self.launches = 0
 
     def __call__(self, *args, **kwargs):

@@ -6,17 +6,19 @@ Cook-Torrance per light with a shadow ray each, translucency fade,
 Reinhard + gamma, and FXAA or TAA.
 
 The casts come from the scheme: "kernel" the dense closest-hit / any-hit
-kernels (ops.intersect_kernel, through a KernelSet as the path tracer's),
-"sparse" the worklist casts of ops.intersect_sparse (unsorted: the
-rasterizer's casts carry no hint, so the flags, closest- and any-hit
-kernels run and the sort key never does), "scan" and "packet" the plain
-casts of ops.traverse, "mxu" and "clustered" those of ops.traverse_mxu and
+kernels (ops.intersect_kernel, through a kernels.KernelSet), "sparse" the
+worklist casts of ops.intersect_sparse (unsorted: the rasterizer's casts
+carry no hint, so the flags, closest- and any-hit kernels run and the
+sort key never does), "scan" and "packet" the plain casts of
+ops.traverse, "mxu" and "clustered" those of ops.traverse_mxu and
 ops.traverse_clustered (the primaries with the relaxed edge -BIAS, as
 flexlight_tpu/models/rasterizer.py:147-153, 193-199 wires them). "auto"
-takes flexlight_tpu's rule on a chip on every device: "sparse" from 4096
-triangles, else "kernel". Every scheme shades a hit layer in the kernel
-set's three shading kernels (ops.raster_kernel, csrc/raster.cu; their
-plain versions on the CPU), around its own shadow casts.
+takes flexlight_tpu's rule on a chip on every device
+(ops.pathtrace.resolve_scheme): "sparse" from 4096 triangles, else
+"kernel". Every scheme shades a hit layer in the kernel set's three
+shading kernels (ops.raster_kernel, csrc/raster.cu; their plain versions
+on the CPU), around its own shadow casts; the AA tail is the post
+chain's (post.chain.antialias).
 
 Reference quirks kept: forwardTrace gets the light vector from the local
 (untransformed) position and the view vector camera - localPosition
@@ -29,16 +31,17 @@ from __future__ import annotations
 import torch
 
 from .. import _native
+from ..kernels import KERNELS, KernelSet
 from ..ops import vec3 as v3
 from ..ops.geometry import world_geometry
 from ..ops.intersect import BIAS
-from ..ops.pathtrace import camera_rays, inverse_view, scheme_casts
+from ..ops.pathtrace import camera_rays, inverse_view, resolve_scheme, scheme_casts
+from ..post.chain import antialias
 from ..post.common import quantize_rgba8
-from ..post.taa import Jitter, TAAState, taa_apply, taa_history
+from ..post.taa import Jitter, TAAState, taa_history
 from ..utils.debug import assert_finite
 from ..utils.timing import span
 from .base import Renderer
-from .pathtracer import KERNELS, KernelSet
 
 
 def _shade(buffers, cam_pos, hit, shadow_fn, config, kernels: KernelSet):
@@ -113,8 +116,6 @@ def _casts(scheme: str, buffers, world_geom, kernels: KernelSet, tile: int):
     Every closest-hit cast stands in for the raster draw (watertight
     coverage), so it takes the relaxed edge window -BIAS; the worklist
     casts' drawable indices are mapped to the slots the shading reads."""
-    if scheme not in Rasterizer.SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; the rasterizer takes {Rasterizer.SCHEMES}")
     traverse_soa, shadow_soa = scheme_casts(scheme, buffers, world_geom, kernels, tile)
 
     def traverse_fn(o, d):
@@ -175,14 +176,8 @@ def raster_frame(buffers, cam_pos, view, taa_state: TAAState | None, width: int,
     alpha_img = a.reshape(height, width)
 
     if config.antialiasing in ("fxaa", "taa"):
-        with span("fl.aa"):
-            aa_in = torch.cat([quantize_rgba8(display),
-                               quantize_rgba8(alpha_img)[..., None]], dim=-1)
-            if config.antialiasing == "fxaa":
-                display = kernels.fxaa(aa_in)[..., 0:3]
-            else:
-                out, taa_state = taa_apply(taa_state, aa_in)
-                display = out[..., 0:3]
+        display, taa_state = antialias(display, alpha_img, quantize_rgba8, taa_state, config,
+                                       kernels.fxaa)
     return torch.clamp(display, 0.0, 1.0), taa_state
 
 
@@ -195,10 +190,6 @@ class Rasterizer(Renderer):
     kernels (CUDA tensors through the kernel wrappers), else "plain"."""
 
     type = "rasterizer"
-    # from this many triangles on, "auto" takes the sparse worklist casts
-    # (flexlight_tpu/models/rasterizer.py:367)
-    SPARSE_MIN_TRIS = 4096
-    SCHEMES = ("kernel", "sparse", "scan", "packet", "mxu", "clustered")
 
     def __init__(self, width, height, scene, camera, config, device, scheme: str = "auto",
                  tile: int = 1024, kernels: KernelSet = KERNELS):
@@ -220,19 +211,11 @@ class Rasterizer(Renderer):
             self._buffers.tpo_atlas.numel() > 3
 
     def resolved_scheme(self) -> str:
-        """The scheme a frame runs: "auto" is "sparse" from SPARSE_MIN_TRIS
-        triangles on, else "kernel" (flexlight_tpu's rule on a chip, here
-        on every device; its CPU branch to mxu / clustered is left
-        behind); any other scheme is a caller's choice."""
-        if self.scheme == "auto":
-            if self._buffers is None:
-                self.update_scene()
-            return "sparse" if self._buffers.id_buffer.shape[0] >= self.SPARSE_MIN_TRIS \
-                else "kernel"
-        if self.scheme in self.SCHEMES:
-            return self.scheme
-        raise ValueError(f"unknown scheme {self.scheme!r}; the rasterizer takes 'auto' or one "
-                         f"of {self.SCHEMES}")
+        """The scheme a frame runs: ops.pathtrace.resolve_scheme without
+        the fused schemes ("auto": "sparse" or "kernel")."""
+        if self.scheme == "auto" and self._buffers is None:
+            self.update_scene()
+        return resolve_scheme(self.scheme, self._buffers)
 
     def resolved_layers(self) -> int:
         if self._buffers is None:

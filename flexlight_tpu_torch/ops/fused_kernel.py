@@ -16,7 +16,7 @@ from .fused import (FR_C, MAX_TRIS, SP_C, TEX_C, fused_frame_plain, live_list_pl
                     sp_post_plain, sp_pre_plain)
 from .shade import ST_C
 
-_RNG_MODES = {"hash": 0, "counter": 1}
+RNG_MODES = {"hash": 0, "counter": 1}
 
 
 def _scene_args(state, w4, ids, mat, cam):
@@ -73,20 +73,20 @@ def _sp_post_launch(lib, stream, state, tex, ndc, w4, ids, mat, lights, cam,
     _native.require(ndc, "ndc", torch.float32, (2, n), dev)
     n_lights = lights.shape[0]
     _native.require(lights, "lights", torch.float32, (n_lights, 2, 3), dev)
-    if config.rng not in _RNG_MODES:
+    if config.rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {config.rng!r}")
     live, count = sp_live_list.run(lib, stream, state)
     _native.check(lib.fl_sp_post(
         _native.ptr(state), _native.ptr(tex), _native.ptr(ndc), _native.ptr(w4), tp,
         _native.ptr(ids), _native.ptr(mat), _native.ptr(lights), n_lights,
         _native.ptr(cam), float(random_seed), float(cos_sample_n), int(i),
-        int(i + 1 < config.max_reflections), _RNG_MODES[config.rng],
+        int(i + 1 < config.max_reflections), RNG_MODES[config.rng],
         config.min_importancy * SQRT3, n, _native.ptr(live), _native.ptr(count), stream),
         "sp_post")
     return state
 
 
-def _table_args(tab, name: str, dev) -> list:
+def table_args(tab, name: str, dev) -> list:
     """The C arguments of one AtlasTable: texels (u8 or f32), whether they
     are u8, tile_info, its slot count, meta."""
     texels, info, meta = tab
@@ -126,10 +126,10 @@ def _fused_frame_launch(lib, stream, dirs, ndc, w4, ids, mat, lights, ambient, a
     _table_tris(tp)
     if lane_stats is not None:
         _native.require(lane_stats, "lane_stats", torch.int32, (2,), dev)
-    if config.rng not in _RNG_MODES:
+    if config.rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {config.rng!r}")
-    tables = (_table_args(albedo_tab, "albedo_tab", dev) + _table_args(pbr_tab, "pbr_tab", dev)
-              + _table_args(tpo_tab, "tpo_tab", dev))
+    tables = (table_args(albedo_tab, "albedo_tab", dev) + table_args(pbr_tab, "pbr_tab", dev)
+              + table_args(tpo_tab, "tpo_tab", dev))
     out = torch.empty((FR_C, n), dtype=torch.float32, device=dev)
     ray_counter = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by the C entry point
     _native.check(lib.fl_fused_frame(
@@ -137,24 +137,12 @@ def _fused_frame_launch(lib, stream, dirs, ndc, w4, ids, mat, lights, ambient, a
         _native.ptr(ids), _native.ptr(mat), _native.ptr(lights), n_lights,
         _native.ptr(ambient), *tables, _native.ptr(cam), _native.ptr(seed),
         _native.ptr(cos_samples), spp, 1.0 / config.samples_per_ray, config.max_reflections,
-        _RNG_MODES[config.rng], config.min_importancy * SQRT3, n, _native.ptr(ray_counter),
+        RNG_MODES[config.rng], config.min_importancy * SQRT3, n, _native.ptr(ray_counter),
         None if lane_stats is None else _native.ptr(lane_stats), stream), "fused_frame")
     return out
 
 
-sp_pre = _native.Kernel(
-    "sp_pre", sp_pre_plain, _sp_pre_launch,
-    source="flexlight_tpu_torch/csrc/fused.cu",
-    replaces="flexlight_tpu/ops/fused.py:872")
-sp_live_list = _native.Kernel(
-    "sp_live_list", live_list_plain, _sp_live_list_launch,
-    source="flexlight_tpu_torch/csrc/fused.cu",
-    replaces="flexlight_tpu/ops/fused.py:944")
-sp_post = _native.Kernel(
-    "sp_post", sp_post_plain, _sp_post_launch,
-    source="flexlight_tpu_torch/csrc/fused.cu",
-    replaces="flexlight_tpu/ops/fused.py:944")
-fused_frame = _native.Kernel(
-    "fused_frame", fused_frame_plain, _fused_frame_launch,
-    source="flexlight_tpu_torch/csrc/fused.cu",
-    replaces="flexlight_tpu/ops/fused.py:175")
+sp_pre = _native.Kernel("sp_pre", sp_pre_plain, _sp_pre_launch)
+sp_live_list = _native.Kernel("sp_live_list", live_list_plain, _sp_live_list_launch)
+sp_post = _native.Kernel("sp_post", sp_post_plain, _sp_post_launch)
+fused_frame = _native.Kernel("fused_frame", fused_frame_plain, _fused_frame_launch)

@@ -4,10 +4,10 @@ kernel 1 of the port (csrc/intersect.cu).
 Moeller-Trumbore in the bilinear form of flexlight_tpu/ops/traverse_mxu.py:
 with the ray features f = [1, o, d, vec(d (x) o)], the four MT quantities
 (det, u*det, v*det, s*det) of every (ray, triangle) pair are dot products
-of f with constant per-triangle rows W[4, T, 16] (ops.traverse_mxu
+of f with constant per-triangle rows W[4, T, 16] (ops.intersect
 `tri_rows`). `closest_hit_plain` / `any_hit_plain` are that function as
-the [N, 16] @ [16, 4T] product in k order (ops.traverse_mxu
-`_mt_products`) plus the accept window, chunked over rays. The CUDA
+the [N, 16] @ [16, 4T] product in k order (ops.intersect `mt_products`)
+plus the accept window, chunked over rays. The CUDA
 kernels build each triangle's 16-float record from W in shared memory
 (its 25 non-zero terms, ops/intersect_sparse.py `tri_record`), sum those
 terms in W's k order and reject a pair exactly
@@ -27,8 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _native
-from .intersect import BIAS, POW32
-from .traverse_mxu import _mt_products, tri_rows
+from .intersect import BIAS, POW32, mt_products, tri_rows
 
 
 def build_w4(world_geom: torch.Tensor, id_buffer: torch.Tensor):
@@ -65,7 +64,7 @@ def closest_hit_plain(w4, ids, o3, d3, max_len, edge: float = BIAS):
     for a, b in _chunks(n, w4.shape[1]):
         o = tuple(c[a:b] for c in o3)
         d = tuple(c[a:b] for c in d3)
-        det, udet, vdet, sdet = _mt_products(w4, o, d)
+        det, udet, vdet, sdet = mt_products(w4, o, d)
         inv = 1.0 / det
         u = udet * inv
         v = vdet * inv
@@ -98,7 +97,7 @@ def any_hit_plain(w4, o3, d3, max_len):
     for a, b in _chunks(n, w4.shape[1]):
         o = tuple(c[a:b] for c in o3)
         d = tuple(c[a:b] for c in d3)
-        det, udet, vdet, sdet = _mt_products(w4, o, d)
+        det, udet, vdet, sdet = mt_products(w4, o, d)
         inv = 1.0 / det
         u = udet * inv
         v = vdet * inv
@@ -111,7 +110,7 @@ def any_hit_plain(w4, o3, d3, max_len):
     return torch.cat(outs)
 
 
-def _ray_args(o3, d3, max_len, dev):
+def ray_args(o3, d3, max_len, dev):
     n = max_len.shape[0]
     _native.require(max_len, "max_len", torch.float32, (n,), dev)
     for name, v in (("origin", o3), ("direction", d3)):
@@ -127,7 +126,7 @@ def _closest_hit_launch(lib, stream, w4, ids, o3, d3, max_len, edge: float = BIA
     tp = w4.shape[1]
     _native.require(w4, "w4", torch.float32, (4, tp, 16), dev)
     _native.require(ids, "ids", torch.int32, (tp,), dev)
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     s = torch.empty(n, dtype=torch.float32, device=dev)
     u = torch.empty_like(s)
     v = torch.empty_like(s)
@@ -143,18 +142,12 @@ def _any_hit_launch(lib, stream, w4, o3, d3, max_len):
     dev = max_len.device
     tp = w4.shape[1]
     _native.require(w4, "w4", torch.float32, (4, tp, 16), dev)
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     _native.check(lib.fl_any_hit(_native.ptr(w4), tp, *ray_ptrs, n,
                                  _native.ptr(hit), stream), "any_hit")
     return hit
 
 
-closest_hit = _native.Kernel(
-    "closest_hit", closest_hit_plain, _closest_hit_launch,
-    source="flexlight_tpu_torch/csrc/intersect.cu",
-    replaces="flexlight_tpu/ops/intersect_kernel.py:39")
-any_hit = _native.Kernel(
-    "any_hit", any_hit_plain, _any_hit_launch,
-    source="flexlight_tpu_torch/csrc/intersect.cu",
-    replaces="flexlight_tpu/ops/intersect_kernel.py:39")
+closest_hit = _native.Kernel("closest_hit", closest_hit_plain, _closest_hit_launch)
+any_hit = _native.Kernel("any_hit", any_hit_plain, _any_hit_launch)

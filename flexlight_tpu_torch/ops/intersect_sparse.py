@@ -6,7 +6,7 @@ The triangles are cut into 128-triangle tiles in drawable (id_buffer)
 order, each with two 64-triangle cluster boxes. The casts read each
 triangle as a 16-float record (`tri_record`, 64 B; a tile is 8 KB): the
 16 distinct magnitudes of the four Moeller-Trumbore rows of
-ops.traverse_mxu.tri_rows, which hold 25 non-zero terms of 64:
+ops.intersect.tri_rows, which hold 25 non-zero terms of 64:
 
     [0:3]  n = e1 x e2      (det row: -n on d; sdet row: n on o)
     [3]    v0 . n           (sdet row: -v0.n on the constant 1)
@@ -44,8 +44,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .intersect import BIAS, POW32
-from .traverse_mxu import _cross
+from .intersect import BIAS, POW32, cross
 
 TRI_TILE = 128
 CLUSTER = 64
@@ -79,14 +78,14 @@ def _super_boxes(amin, amax, group: int = SUPER_GROUP):
 
 def tri_record(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> torch.Tensor:
     """[T, 16] f32: each drawable triangle's record (module docstring),
-    every value computed as ops.traverse_mxu.tri_rows computes it."""
+    every value computed as ops.intersect.tri_rows computes it."""
     tris = world_geom[id_buffer.long()]
     v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
     e1 = v1 - v0
     e2 = v2 - v0
-    n = _cross(e1, e2)
+    n = cross(e1, e2)
     v0n = v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2]
-    return torch.cat([n, v0n[:, None], _cross(e2, v0), _cross(v0, e1), e2, e1], dim=-1)
+    return torch.cat([n, v0n[:, None], cross(e2, v0), cross(v0, e1), e2, e1], dim=-1)
 
 
 def build_tiled(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> SparseScene:

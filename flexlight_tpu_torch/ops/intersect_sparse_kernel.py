@@ -16,7 +16,8 @@ their scheduling:
   (`record_products`): the terms of ops.intersect_kernel's 16 rank-1
   updates in k order, with their signs as exact negations. Where a partial
   sum is non-zero, adding an exact zero product leaves it unchanged, so
-  the products equal `_mt_products`' (a zero may differ in sign).
+  the products equal ops.intersect.mt_products' (a zero may differ in
+  sign).
 The kernels walk the worklist in entry order instead, each warp on its
 own: a ray is done once its best hit cannot reach the next tile's entry
 bound (flexlight_tpu's guard band, `_EXIT_REL` / `_EXIT_ABS`), or once it
@@ -36,7 +37,7 @@ import torch
 
 from .. import _native
 from .intersect import BIAS, POW32
-from .intersect_kernel import _ray_args
+from .intersect_kernel import ray_args
 from .intersect_sparse import CLUSTER, REC, TRI_TILE
 
 CLUSTERS_PER_TILE = TRI_TILE // CLUSTER
@@ -133,7 +134,7 @@ def nearest2_key_plain(bmin, bmax, o3, d3, max_len):
 def record_products(q, o, d):
     """(det, udet, vdet, sdet) from the 16 record columns `q` and the ray's
     origin and direction components `o`, `d` (3 each), all broadcast
-    together: the non-zero terms of ops.traverse_mxu.tri_rows in
+    together: the non-zero terms of ops.intersect.tri_rows in
     ascending k, each negated term an exact negation or subtraction, in
     the kernel's order (csrc/sparse.cu fl_rec_*)."""
     n0, n1, n2, v0n, c0, c1, c2, g0, g1, g2, e2x, e2y, e2z, e1x, e1y, e1z = q
@@ -271,7 +272,7 @@ def _flags_launch(lib, stream, amin, amax, o3, d3, max_len, ray_tile: int):
     k = _boxes(amin, amax, "aabb", dev)
     if k % CLUSTERS_PER_TILE:
         raise ValueError(f"{k} cluster boxes are not whole triangle tiles")
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     rt, wt = _tiles_of(n, ray_tile, FLAGS_RAY_TILE), k // CLUSTERS_PER_TILE
     out = torch.empty((rt, wt), dtype=torch.float32, device=dev)
     _native.check(lib.fl_sparse_flags(_native.ptr(amin), _native.ptr(amax), wt, *ray_ptrs,
@@ -282,7 +283,7 @@ def _flags_launch(lib, stream, amin, amax, o3, d3, max_len, ray_tile: int):
 def _key_launch(lib, stream, bmin, bmax, o3, d3, max_len):
     dev = max_len.device
     nb = _boxes(bmin, bmax, "box", dev)
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     key = torch.empty(n, dtype=torch.int32, device=dev)
     _native.check(lib.fl_sparse_key(_native.ptr(bmin), _native.ptr(bmax), nb, *ray_ptrs, n,
                                     _native.ptr(key), stream), "sparse_key")
@@ -292,7 +293,7 @@ def _key_launch(lib, stream, bmin, bmax, o3, d3, max_len):
 def _closest_launch(lib, stream, rec, tlist, tms, counts, o3, d3, max_len, edge: float,
                     ray_tile: int):
     dev = max_len.device
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     rt = _tiles_of(n, ray_tile, MAX_RAY_TILE // CAST_LANES)
     wt = _worklist_args(rec, tlist, counts, rt, dev)
     _native.require(tms, "tms", torch.float32, (rt, wt), dev)
@@ -308,7 +309,7 @@ def _closest_launch(lib, stream, rec, tlist, tms, counts, o3, d3, max_len, edge:
 
 def _any_launch(lib, stream, rec, tlist, counts, o3, d3, max_len, ray_tile: int):
     dev = max_len.device
-    n, ray_ptrs = _ray_args(o3, d3, max_len, dev)
+    n, ray_ptrs = ray_args(o3, d3, max_len, dev)
     rt = _tiles_of(n, ray_tile, MAX_RAY_TILE // CAST_LANES)
     wt = _worklist_args(rec, tlist, counts, rt, dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -318,13 +319,7 @@ def _any_launch(lib, stream, rec, tlist, counts, o3, d3, max_len, ray_tile: int)
     return hit
 
 
-_SOURCE = "flexlight_tpu_torch/csrc/sparse.cu"
-sparse_flags = _native.Kernel("sparse_flags", flags_plain, _flags_launch, source=_SOURCE,
-                              replaces="flexlight_tpu/ops/intersect_sparse.py:151")
-sparse_key = _native.Kernel("sparse_key", nearest2_key_plain, _key_launch, source=_SOURCE,
-                            replaces="flexlight_tpu/ops/intersect_sparse.py:394")
-sparse_closest = _native.Kernel("sparse_closest", closest_plain, _closest_launch,
-                                source=_SOURCE,
-                                replaces="flexlight_tpu/ops/intersect_sparse.py:606")
-sparse_any = _native.Kernel("sparse_any", any_plain, _any_launch, source=_SOURCE,
-                            replaces="flexlight_tpu/ops/intersect_sparse.py:776")
+sparse_flags = _native.Kernel("sparse_flags", flags_plain, _flags_launch)
+sparse_key = _native.Kernel("sparse_key", nearest2_key_plain, _key_launch)
+sparse_closest = _native.Kernel("sparse_closest", closest_plain, _closest_launch)
+sparse_any = _native.Kernel("sparse_any", any_plain, _any_launch)

@@ -593,6 +593,39 @@ def _row_casts(scheme: str, buffers: SceneBuffers, world_geom, tile: int):
             partial(tc.shadow_clustered, clusters))
 
 
+# from this many triangles on, "auto" takes the sparse worklist casts
+# (flexlight_tpu/models/pathtracer.py:342, models/rasterizer.py:367)
+SPARSE_MIN_TRIS = 4096
+# the schemes of scheme_casts (the row casts take rays as [N, 3] rows) and
+# the path tracer's fused ones (ops.fused)
+ROW_SCHEMES = ("scan", "packet", "mxu", "clustered")
+CAST_SCHEMES = ("kernel", "sparse") + ROW_SCHEMES
+FUSED_SCHEMES = ("fused_split", "fused")
+
+
+def resolve_scheme(scheme: str, buffers: SceneBuffers | None = None, fused: bool = False) -> str:
+    """The scheme a frame runs. "auto" on a scene (`buffers`) is
+    flexlight_tpu's rule on a chip, here on every device: "sparse" from
+    SPARSE_MIN_TRIS triangles on, else "fused_split" where `fused` allows
+    it (the path tracer) and the scene is within its caps, else "kernel".
+    The other schemes run only when asked for (flexlight_tpu's CPU branch
+    to mxu / clustered is left behind, ROADMAP.md)."""
+    schemes = (FUSED_SCHEMES if fused else ()) + CAST_SCHEMES
+    if scheme == "auto" and buffers is not None:
+        if buffers.id_buffer.shape[0] >= SPARSE_MIN_TRIS:
+            return "sparse"
+        if fused:
+            from .fused import fused_split_eligible
+
+            if fused_split_eligible(buffers):
+                return "fused_split"
+        return "kernel"
+    if scheme not in schemes:
+        raise ValueError(f"unknown scheme {scheme!r}; not one of {schemes} (or a renderer's "
+                         "'auto')")
+    return scheme
+
+
 def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: int = 1024):
     """The scheme's cast closures (traverse_soa, shadow_soa). Both take
     `bounce=True` on the casts of the bounce loop; the sparse scheme sorts
@@ -601,7 +634,7 @@ def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: 
     casts (ops.traverse_mxu) and the clustered casts
     (ops.traverse_clustered) test dead rays too, as flexlight_tpu's do:
     the bounce loop masks their hits."""
-    if scheme in ("scan", "packet", "mxu", "clustered"):
+    if scheme in ROW_SCHEMES:
         closest, any_hit = _row_casts(scheme, buffers, world_geom, tile)
 
         def traverse_soa(o3, d3, alive=None, edge=BIAS, bounce=False):
@@ -669,7 +702,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     ops.fused_kernel's wrappers). scheme="fused": the whole frame in one
     kernel of ops.fused (`kernels.fused_frame`), on scenes within
     ops.fused.fused_eligible, identical to "fused_split". `kernels` may be
-    any object with those attributes, such as models.pathtracer.PLAIN.
+    any object with those attributes, such as kernels.PLAIN.
     scheme="scan" and "packet" (flexlight_tpu's default and its packet
     casts, plain XLA there) run the same loop around ops.traverse's
     plain casts, the packets `tile` consecutive rays (N a multiple of
@@ -699,7 +732,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     Traced (kernel, sparse, scan, packet, mxu and clustered schemes): the
     camera rays and the primary cast are the span fl.primary, each bounce
     fl.bounce {i} (light_trace), the render targets fl.mrt."""
-    if scheme in ("fused_split", "fused"):
+    if scheme in FUSED_SCHEMES:
         if shade_kernel:
             raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
                              f"'sparse'; scheme={scheme!r} shades inside its own kernel")
@@ -710,8 +743,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         return render(buffers, width, height, camera_pos, view_matrix, config, random_seed,
                       kernels=kernels, row0=row0, rows=rows, sample_offset=sample_offset,
                       local_samples=local_samples, with_raw_aux=with_raw_aux)
-    if scheme not in ("kernel", "sparse", "scan", "packet", "mxu", "clustered"):
-        raise ValueError(f"unknown scheme {scheme!r}")
+    resolve_scheme(scheme)
     if shade_kernel and scheme not in ("kernel", "sparse"):
         raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
                          f"'sparse', not of scheme={scheme!r}")

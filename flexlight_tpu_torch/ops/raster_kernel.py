@@ -24,7 +24,7 @@ from ..post.common import reinhard_gamma
 from . import vec3 as v3
 from .brdf import forward_trace, normalize
 from .buffers import fetch_tex_val_table
-from .fused_kernel import _table_args
+from .fused_kernel import table_args
 
 
 def _bary(rows: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor:
@@ -164,8 +164,8 @@ def _raster_shade_launch(lib, stream, geometry, attributes, rotations, albedo_ta
     _native.require(cam, "cam", torch.float32, (3,), dev)
     n, hit = _hit_args(hu, hv, slot, dev)
     _native.require(shadowed, "shadowed", torch.bool, (n_lights, n), dev)
-    tables = (_table_args(albedo_tab, "albedo_tab", dev) + _table_args(pbr_tab, "pbr_tab", dev)
-              + _table_args(tpo_tab, "tpo_tab", dev))
+    tables = (table_args(albedo_tab, "albedo_tab", dev) + table_args(pbr_tab, "pbr_tab", dev)
+              + table_args(tpo_tab, "tpo_tab", dev))
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     alpha = torch.empty(n, dtype=torch.float32, device=dev)
     _native.check(lib.fl_raster_shade(
@@ -176,13 +176,6 @@ def _raster_shade_launch(lib, stream, geometry, attributes, rotations, albedo_ta
     return rgb, alpha
 
 
-_NOTE = "none: flexlight_tpu jits its rasterizer frame, XLA fuses the shading"
-raster_surface = _native.Kernel(
-    "raster_surface", raster_surface_plain, _raster_surface_launch,
-    source="flexlight_tpu_torch/csrc/raster.cu", replaces=_NOTE)
-raster_rays = _native.Kernel(
-    "raster_rays", raster_rays_plain, _raster_rays_launch,
-    source="flexlight_tpu_torch/csrc/raster.cu", replaces=_NOTE)
-raster_shade = _native.Kernel(
-    "raster_shade", raster_shade_plain, _raster_shade_launch,
-    source="flexlight_tpu_torch/csrc/raster.cu", replaces=_NOTE)
+raster_surface = _native.Kernel("raster_surface", raster_surface_plain, _raster_surface_launch)
+raster_rays = _native.Kernel("raster_rays", raster_rays_plain, _raster_rays_launch)
+raster_shade = _native.Kernel("raster_shade", raster_shade_plain, _raster_shade_launch)

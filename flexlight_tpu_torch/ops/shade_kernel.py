@@ -14,7 +14,7 @@ import torch
 from .. import _native
 from .brdf import SQRT3
 from .fused import TEX_C
-from .fused_kernel import _RNG_MODES, sp_live_list
+from .fused_kernel import RNG_MODES, sp_live_list
 from .shade import (REQ_C, REQ_STEP_C, ST_C, alive_list_plain, interp_shade_plain,
                     shade_plain)
 
@@ -31,9 +31,9 @@ def _common(state, req, req_rows, ndc, lights, cam, random_seed, cos_sample_n, c
     _native.require(cam, "cam", torch.float32, (3,), dev)
     _native.require(random_seed, "random_seed", torch.float32, (), dev)
     _native.require(cos_sample_n, "cos_sample_n", torch.float32, (), dev)
-    if config.rng not in _RNG_MODES:
+    if config.rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {config.rng!r}")
-    return n, n_lights, _RNG_MODES[config.rng]
+    return n, n_lights, RNG_MODES[config.rng]
 
 
 def _shade_launch(lib, stream, state, req, tex, ndc, lights, cam, random_seed, cos_sample_n,
@@ -80,15 +80,6 @@ def _interp_shade_launch(lib, stream, state, req, ndc, mat, atlas, lights, cam, 
     return state, req
 
 
-shade = _native.Kernel(
-    "shade", shade_plain, _shade_launch,
-    source="flexlight_tpu_torch/csrc/shade.cu",
-    replaces="flexlight_tpu/ops/fused.py:1364")
-alive_list = _native.Kernel(
-    "alive_list", alive_list_plain, _alive_list_launch,
-    source="flexlight_tpu_torch/csrc/shade.cu",
-    replaces="flexlight_tpu/ops/fused.py:1546")
-interp_shade = _native.Kernel(
-    "interp_shade", interp_shade_plain, _interp_shade_launch,
-    source="flexlight_tpu_torch/csrc/shade.cu",
-    replaces="flexlight_tpu/ops/fused.py:1546")
+shade = _native.Kernel("shade", shade_plain, _shade_launch)
+alive_list = _native.Kernel("alive_list", alive_list_plain, _alive_list_launch)
+interp_shade = _native.Kernel("interp_shade", interp_shade_plain, _interp_shade_launch)

@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from .intersect import BIAS, POW32, _mt
+from .intersect import BIAS, POW32, mt_solve
 
 CHUNK = 16
 SYNC_EVERY = 16          # packet steps between the host's looks at whether a tile is left
@@ -45,7 +45,7 @@ def _mt_chunk(v0, v1, v2, origin, direction, max_len, cull: bool, edge: float = 
     valid [..., C, N] with the accept window of glsl:123-158. `edge` is
     the lower bound of the u / v window: -BIAS on casts that stand in for
     the reference's watertight raster pass, +BIAS otherwise."""
-    det, u, v, s = _mt(v0, v1, v2, origin.unsqueeze(-3), direction.unsqueeze(-3))
+    det, u, v, s = mt_solve(v0, v1, v2, origin.unsqueeze(-3), direction.unsqueeze(-3))
     valid = (det >= BIAS) if cull else (torch.abs(det) >= BIAS)
     valid &= (u >= edge) & (u <= 1.0)
     valid &= (v >= edge) & (u + v <= 1.0)

@@ -26,8 +26,8 @@ clusters, then merged: the same evaluations, merged in the same order, as
 the per-group loop. A pair's products are `record_products` of
 ops.intersect_sparse_kernel on the triangle's 16-float record (read off
 W): the 25 non-zero terms of W's 64 in W's k order, so the values of
-`_mt_products` but for a zero's sign, which no accept decision reads, at
-2.5x fewer operations.
+ops.intersect.mt_products but for a zero's sign, which no accept
+decision reads, at 2.5x fewer operations.
 
 Ties go where the reference sends them: the first minimum within a chunk
 (over its clusters in sorted order, then their triangles), the earlier

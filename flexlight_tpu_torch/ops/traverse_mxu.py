@@ -2,21 +2,13 @@
 (flexlight_tpu/ops/traverse_mxu.py), its CPU route up to 8192 triangles,
 in plain float32 PyTorch.
 
-The four MT quantities are (bi)linear in the ray:
-
-    det       = -d . n                     n  = e1 x e2
-    u * det   = d . (e2 x (o - v0))
-    v * det   = d . ((o - v0) x e1)
-    s * det   = (o - v0) . n
-
-so with the ray features f = [1, o, d, vec(d (x) o)] every (ray,
-triangle) pair's four values are one product F[N, 16] @ W[16, 4T]
-(`build_tri_matrix`; per triangle the four constant rows of `tri_rows`).
-flexlight_tpu takes it on the MXU; here it is `_mt_products`: 16 rank-1
-updates in k order, in plain float32 (no BLAS call, so no TF32 either),
-the order in which the port's closest-hit and any-hit kernels (and their
-plain versions, ops.intersect_kernel) sum the same terms. So a mxu frame
-is the scheme="kernel" frame of the same scene.
+Every (ray, triangle) pair's four MT quantities are one product F[N, 16]
+@ W[16, 4T] of the ray features and the triangles' constant rows
+(`build_tri_matrix`; ops.intersect `ray_features`, `tri_rows`).
+flexlight_tpu takes it on the MXU; here it is ops.intersect.mt_products,
+16 rank-1 updates in k order in plain float32 (no BLAS, no TF32): the
+order of the closest-hit and any-hit kernels, so a mxu frame is the
+scheme="kernel" frame of the same scene.
 
 The semantics stay the reference's, which differ from the kernels':
 a zero direction is not replaced by +z, a dead ray is tested like a live
@@ -33,47 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import BIAS, POW32
+from .intersect import BIAS, POW32, mt_products, tri_rows
 from .traverse import Hit
 
 MXU_BLOCK_VALUES = 1 << 25   # float32 values of one [block, 4T] product (128 MiB)
-
-
-def _cross(a, b):
-    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
-
-
-def _skew(v):
-    """Cross-product matrix rows, flattened: skew(a) @ b == cross(a, b)."""
-    zero = torch.zeros_like(v[:, 0])
-    return torch.stack([zero, -v[:, 2], v[:, 1],
-                        v[:, 2], zero, -v[:, 0],
-                        -v[:, 1], v[:, 0], zero], dim=-1)
-
-
-def tri_rows(world_geom: torch.Tensor, id_buffer: torch.Tensor):
-    """The four MT constant rows (det, udet, vdet, sdet), each [T, 16]."""
-    tris = world_geom[id_buffer.long()]
-    v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    n = _cross(e1, e2)
-    t = v0.shape[0]
-    z1 = torch.zeros((t, 1), dtype=torch.float32, device=v0.device)
-    z3 = torch.zeros((t, 3), dtype=torch.float32, device=v0.device)
-    z9 = torch.zeros((t, 9), dtype=torch.float32, device=v0.device)
-    # det = e1 . (d x e2) = -d . n
-    det = torch.cat([z1, z3, -n, z9], dim=-1)
-    # u*det = sum_ik d_i o_k skew(e2)[i,k] - d . cross(e2, v0)
-    udet = torch.cat([z1, z3, -_cross(e2, v0), _skew(e2)], dim=-1)
-    # v*det = -sum_ik d_i o_k skew(e1)[i,k] - d . cross(v0, e1)
-    vdet = torch.cat([z1, z3, -_cross(v0, e1), -_skew(e1)], dim=-1)
-    # s*det = o . n - v0 . n
-    v0n = v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2]
-    sdet = torch.cat([-v0n[:, None], n, z3, z9], dim=-1)
-    return det, udet, vdet, sdet
 
 
 def build_tri_matrix(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> torch.Tensor:
@@ -81,31 +36,6 @@ def build_tri_matrix(world_geom: torch.Tensor, id_buffer: torch.Tensor) -> torch
     (det, udet, vdet, sdet)."""
     w = torch.stack(tri_rows(world_geom, id_buffer), dim=1)   # [T, 4, 16]
     return w.reshape(-1, 16).T
-
-
-def ray_features(o3, d3) -> torch.Tensor:
-    """f = [1, o, d, vec(d (x) o)] : [N, 16]."""
-    cols = [torch.ones_like(o3[0]), o3[0], o3[1], o3[2], d3[0], d3[1], d3[2]]
-    cols += [d3[c] * o3[k] for c in range(3) for k in range(3)]
-    return torch.stack(cols, dim=-1)
-
-
-def _mt_products(w4, o3, d3):
-    """det, udet, vdet, sdet, each [N, T]: the product F[N, 16] @ W[16, 4T]
-    of W given as [4, T, 16] planes, taken as 16 rank-1 updates in k order,
-    in plain float32 (no BLAS call, so no TF32 either). A BLAS product sums
-    in an order of its own, and the bilinear form's s of a shadow ray
-    leaving a surface lies within that rounding of the BIAS accept edge; in
-    k order every product and sum rounds as in the kernels' dot products,
-    so the two agree bit for bit."""
-    t = w4.shape[1]
-    w = w4.permute(2, 1, 0).reshape(16, 4 * t)        # [16, 4T], column t*4+p
-    f = ray_features(o3, d3)
-    prod = f[:, 0, None] * w[0]
-    for k in range(1, 16):
-        prod = prod + f[:, k, None] * w[k]
-    prod = prod.reshape(-1, t, 4)
-    return prod[..., 0], prod[..., 1], prod[..., 2], prod[..., 3]
 
 
 def _planes(w: torch.Tensor) -> torch.Tensor:
@@ -124,7 +54,7 @@ def _soa(x: torch.Tensor):
 
 
 def _closest_hit_block(w4, id_buffer, o3, d3, edge: float):
-    det, udet, vdet, sdet = _mt_products(w4, o3, d3)
+    det, udet, vdet, sdet = mt_products(w4, o3, d3)
     inv = 1.0 / det
     u = udet * inv
     v = vdet * inv
@@ -146,7 +76,7 @@ def _closest_hit_block(w4, id_buffer, o3, d3, edge: float):
 
 
 def _shadow_block(w4, o3, d3, max_len):
-    det, udet, vdet, sdet = _mt_products(w4, o3, d3)
+    det, udet, vdet, sdet = mt_products(w4, o3, d3)
     inv = 1.0 / det
     u = udet * inv
     v = vdet * inv

@@ -28,7 +28,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import KERNELS
 from ..ops.pathtrace import INV_255, MRT, render_mrt
+from ..post.chain import postprocess_mrt
+from ..post.taa import TAAState, neighborhood_clamp, taa_apply
+from ..post.temporal import TemporalState
 from .halo import all_gather, all_reduce, broadcast, exchange_halo, mesh_axis, with_halo
 
 # the disc filters' per-pixel stencil scale ranges (post/filters.py: the
@@ -161,13 +165,10 @@ def render_mrt_sharded(buffers, width: int, height: int, camera_pos, view_matrix
 
 def frame_pipeline_sharded(buffers, cam_pos, view, random_seed, temporal_state, taa_state,
                            width: int, height: int, config, mesh, scheme: str = "kernel",
-                           kernels=None, tile: int = 1024):
+                           kernels=KERNELS, tile: int = 1024):
     """A whole frame: the sharded MRT pass, then the one-process post on
     every rank (models.pathtracer.frame_pipeline with the MRT distributed).
     Returns (display, temporal state, TAA state)."""
-    from ..models.pathtracer import KERNELS, postprocess_mrt
-
-    kernels = KERNELS if kernels is None else kernels
     mrt = render_mrt_sharded(buffers, width, height, cam_pos, view, config, random_seed, mesh,
                              scheme=scheme, kernels=kernels, tile=tile)
     return postprocess_mrt(mrt, temporal_state, taa_state, width, height, config, kernels)
@@ -175,13 +176,14 @@ def frame_pipeline_sharded(buffers, cam_pos, view, random_seed, temporal_state, 
 
 def frame_pipeline_sharded_halo(buffers, cam_pos, view, random_seed, temporal_state,
                                 taa_state, width: int, height: int, config, mesh,
-                                scheme: str = "kernel", kernels=None, tile: int = 1024,
+                                scheme: str = "kernel", kernels=KERNELS, tile: int = 1024,
                                 halo: int = 32, check_halo: bool = True):
     """A whole frame with the path trace AND the post-processing strip-
-    sharded: temporal accumulation is pointwise on each strip; the denoise
-    passes and FXAA take `halo` border rows from the neighbours around
-    each pass (parallel.halo), TAA's clamp a 1-row halo; only the display
-    strips and the updated history strips are gathered. Identical to the
+    sharded: the one post chain (post.chain.postprocess_mrt) on each
+    rank's strip, its temporal accumulation pointwise; the denoise passes
+    and FXAA take `halo` border rows from the neighbours around each pass
+    (parallel.halo), TAA's clamp a 1-row halo; only the display strips
+    and the updated history strips are gathered. Identical to the
     one-process pipeline wherever each pass's reach fits the halo, but
     for the blur key of a tile that straddles a strip border
     (`tileize_blur_key_sharded`). Uses the "tile" axis only.
@@ -192,12 +194,6 @@ def frame_pipeline_sharded_halo(buffers, cam_pos, view, random_seed, temporal_st
     of `frame_pipeline_sharded`, the reference's own semantics for that
     case (not a device fallback). check_halo=False keeps the halo path for
     callers that know their scene's data reach fits `halo`."""
-    from ..models.pathtracer import KERNELS, _filter_chain_packed, _quantized_mrt
-    from ..post.common import quantize_rgba8, split_hdr
-    from ..post.taa import TAAState, neighborhood_clamp, taa_apply
-    from ..post.temporal import TemporalState, push_frame, temporal_average
-
-    kernels = KERNELS if kernels is None else kernels
     _, ti, n_tile = mesh_axis(mesh, "tile")
     rows_local = _shards(height, n_tile)
     if check_halo:
@@ -208,50 +204,25 @@ def frame_pipeline_sharded_halo(buffers, cam_pos, view, random_seed, temporal_st
                                           scheme=scheme, kernels=kernels, tile=tile)
         halo = max(halo, need)
     halo = min(halo, rows_local)
-    use_aa = config.antialiasing in ("fxaa", "taa")
     row0 = ti * rows_local
     rows = slice(row0, row0 + rows_local)
 
+    def taa_step(state, aa_in):
+        # the 3x3 clamp is TAA's only cross-pixel read: a 1-row halo; the
+        # history strips stay local until the gather
+        mn, mx = neighborhood_clamp(exchange_halo(aa_in, 1, mesh))
+        out, mine = taa_apply(TAAState(history=state.history[:, rows]), aa_in,
+                              clamp=(mn[1:-1], mx[1:-1]))
+        return out, TAAState(history=all_gather(mine.history, mesh, "tile", dim=1))
+
     mrt = render_mrt(buffers, width, height, cam_pos, view, config, random_seed,
                      scheme=scheme, kernels=kernels, tile=tile, row0=row0, rows=rows_local)
-    color, alpha, color_q, ip_q, id_q, oid_q, ocolor_q = _quantized_mrt(mrt, rows_local, width)
-    chain = partial(_filter_chain_packed, config, kernels=kernels,
-                    lift=lambda f: with_halo(f, halo, mesh),
-                    tileize=partial(tileize_blur_key_sharded, row0=row0, height=height,
-                                    mesh=mesh))
     my_state = TemporalState(*(x[:, rows] for x in temporal_state))
-    if config.temporal:
-        my_state = push_frame(my_state, color_q, ip_q, id_q, oid_q)
-        t_color, t_glass, center_w = temporal_average(my_state)
-        if config.filter:
-            frac_q, high_q = split_hdr(t_color)
-            r0 = torch.cat([frac_q, center_w[..., None]], dim=-1)
-            ip0 = torch.cat([high_q, quantize_rgba8(t_glass)[..., None]], dim=-1)
-            display = chain(r0, ip0, ocolor_q, id_q, oid_q)
-        else:
-            display = torch.clamp(t_color, 0.0, 1.0)
-            if use_aa:
-                display = quantize_rgba8(display)
-    elif config.filter:
-        display = chain(color_q, ip_q, ocolor_q, id_q, oid_q)
-    else:
-        display = torch.clamp(color * mrt.original_color.reshape(rows_local, width, 3),
-                              0.0, 1.0)
-
-    new_taa = taa_state
-    if use_aa:
-        aa_in = torch.cat([quantize_rgba8(display),
-                           (alpha > 0).to(torch.float32)[..., None]], dim=-1)
-        if config.antialiasing == "fxaa":
-            display = with_halo(kernels.fxaa, halo, mesh)(aa_in)[..., 0:3]
-        else:
-            # the 3x3 clamp is TAA's only cross-pixel read: a 1-row halo;
-            # the history strips stay local
-            mn, mx = neighborhood_clamp(exchange_halo(aa_in, 1, mesh))
-            out, my_taa = taa_apply(TAAState(history=taa_state.history[:, rows]), aa_in,
-                                    clamp=(mn[1:-1], mx[1:-1]))
-            display = out[..., 0:3]
-            new_taa = TAAState(history=all_gather(my_taa.history, mesh, "tile", dim=1))
-    display = all_gather(torch.clamp(display, 0.0, 1.0), mesh, "tile")
+    display, my_state, new_taa = postprocess_mrt(
+        mrt, my_state, taa_state, width, rows_local, config, kernels,
+        lift=lambda f: with_halo(f, halo, mesh),
+        tileize=partial(tileize_blur_key_sharded, row0=row0, height=height, mesh=mesh),
+        taa_step=taa_step)
+    display = all_gather(display, mesh, "tile")
     new_state = TemporalState(*(all_gather(x, mesh, "tile", dim=1) for x in my_state))
     return display, new_state, new_taa

@@ -192,14 +192,9 @@ def _final_blur_launch(lib, stream, ids, oid, color, ip, ocolor, hdr: bool):
     return out
 
 
-_SRC = "flexlight_tpu_torch/csrc/disc_filter.cu"
-_REPLACES = "flexlight_tpu/post/filter_kernel.py:241"
-first_blur = _native.Kernel("first_blur", first_blur_plain, _first_blur_launch,
-                            _SRC, _REPLACES)
-second_blur = _native.Kernel("second_blur", second_blur_plain, _second_blur_launch,
-                             _SRC, _REPLACES)
-final_blur = _native.Kernel("final_blur", final_blur_plain, _final_blur_launch,
-                            _SRC, _REPLACES)
+first_blur = _native.Kernel("first_blur", first_blur_plain, _first_blur_launch)
+second_blur = _native.Kernel("second_blur", second_blur_plain, _second_blur_launch)
+final_blur = _native.Kernel("final_blur", final_blur_plain, _final_blur_launch)
 
 
 # --------------------------------------------------------------------------

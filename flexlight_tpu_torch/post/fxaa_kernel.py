@@ -23,6 +23,4 @@ def _fxaa_launch(lib, stream, img: torch.Tensor) -> torch.Tensor:
     return out
 
 
-fxaa_cuda = _native.Kernel("fxaa", fxaa, _fxaa_launch,
-                           source="flexlight_tpu_torch/csrc/fxaa.cu",
-                           replaces="flexlight_tpu/post/fxaa_kernel.py:53")
+fxaa_cuda = _native.Kernel("fxaa", fxaa, _fxaa_launch)

@@ -42,7 +42,8 @@ def frame(dev):
     """One 96x64 theater frame with the plain versions on each scheme
     ("auto", which is fused_split for theater, and "kernel"), recording
     each kernel's first inputs; and the frames themselves."""
-    from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import PLAIN, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater
 
     captured = {}
@@ -66,7 +67,7 @@ def frame(dev):
 @pytest.mark.parametrize("name", ["closest_hit", "any_hit", "first_blur", "second_blur",
                                   "final_blur", "fxaa", "sp_pre", "sp_post"])
 def test_kernel_matches_plain_on_the_card(frame, name):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
 
     captured = frame[0]
     kernel = getattr(KERNELS, name)
@@ -89,7 +90,8 @@ def test_kernel_matches_plain_on_the_card(frame, name):
 
 @pytest.mark.parametrize("scheme", ["auto", "kernel"])
 def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import KERNELS, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
 
     _, plain_imgs, e, cfg = frame
     counts = [k.launches for k in KERNELS]
@@ -110,7 +112,7 @@ RASTER_SHADING = ("raster_surface", "raster_rays", "raster_shade")
 def test_rasterizer_frame_through_the_kernels_is_the_plain_frame(frame, dev, scheme):
     """A small rasterizer frame (theater, 4 translucent layers, FXAA) on
     the dense and on the worklist casts: identical to its plain frame."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN, KernelSet
     from flexlight_tpu_torch.models.rasterizer import Rasterizer
 
     _, _, e, _ = frame
@@ -132,7 +134,7 @@ def test_rasterizer_1080p_frame_shades_in_the_kernels(frame, dev):
     shades its 4 layers in csrc/raster.cu (a surface and a shade launch a
     layer, a ray launch a light and layer), and both frames equal the
     frames of the plain versions bit for bit."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from flexlight_tpu_torch.models.rasterizer import Rasterizer
 
     _, _, e, _ = frame
@@ -160,7 +162,8 @@ def sparse_frame(dev, tmp_path_factory):
     "sparse") with the plain versions, recording each worklist kernel's
     inputs of its first call; and the frame."""
     from flexlight_tpu_torch import reset_global_registry
-    from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import PLAIN, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.scenes import dragon
 
     captured = {}
@@ -184,7 +187,7 @@ def sparse_frame(dev, tmp_path_factory):
 
 @pytest.mark.parametrize("name", SPARSE)
 def test_sparse_kernel_matches_plain_on_the_card(sparse_frame, name):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
 
     args = sparse_frame[0][name]
     kernel = getattr(KERNELS, name)
@@ -250,7 +253,8 @@ def test_prepass_kernels_match_plain_on_crafted_inputs(dev, name):
 
 
 def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, dev):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import KERNELS, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
 
     _, plain_img, e, cfg = sparse_frame
     counts = [k.launches for k in KERNELS]
@@ -273,7 +277,8 @@ def shade_frames(dev, tmp_path_factory):
     the kernels, counting launches. Theater first: the dragon resets the
     transform registry."""
     from flexlight_tpu_torch import reset_global_registry
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater
 
     calls = []
@@ -313,7 +318,7 @@ def shade_frames(dev, tmp_path_factory):
 @pytest.mark.parametrize("name", ["theater", "dragon"])
 def test_shade_kernels_match_plain_on_the_card(shade_frames, name):
     """Each shading call's state and request blocks: identical."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
 
     kind, calls, *_ = shade_frames[name]
     assert len(calls) == 3
@@ -348,7 +353,8 @@ def wave_frame(dev):
     scheme="fused" with the plain versions, recording fused_frame's
     inputs; and the frame."""
     from flexlight_tpu_torch import reset_global_registry
-    from flexlight_tpu_torch.models.pathtracer import PLAIN, PathTracer
+    from flexlight_tpu_torch.kernels import PLAIN
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.scenes import wave
 
     calls = []
@@ -370,7 +376,7 @@ def wave_frame(dev):
 def test_fused_frame_matches_plain_on_the_card(wave_frame):
     """The whole-frame kernel's block: identical to its plain version's
     (NaN equals NaN)."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
 
     calls = wave_frame[0]
     assert len(calls) == 1
@@ -387,7 +393,8 @@ def test_fused_frame_through_the_kernels(wave_frame, dev):
     """One launch of fused_frame per frame and no other tracing kernel;
     the frame within the golden budget of the plain frame; the MRT
     identical to scheme="fused_split"'s through its kernels."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, KernelSet, PathTracer
+    from flexlight_tpu_torch.kernels import KERNELS, KernelSet
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
     from flexlight_tpu_torch.ops.pathtrace import render_mrt
 
     _, plain_img, e, cfg = wave_frame
@@ -441,7 +448,7 @@ def test_post_launches_are_identical_despite_the_list_order(frame):
     """Two POST launches on the same state (the list's order may differ
     between them) give identical states, equal to the plain version's;
     POST launches the list kernel once a call."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from flexlight_tpu_torch.ops import fused_kernel as SK
     from test_torch_fused_record import identical
 
@@ -458,7 +465,7 @@ def test_post_launches_are_identical_despite_the_list_order(frame):
 @pytest.mark.parametrize("name", ["det_bias", "det_below_bias", "sdet_zero", "udet_zero",
                                   "vdet_zero", "u_on_edge", "u_below_edge", "back_face"])
 def test_post_is_exact_on_crafted_reject_edges_on_the_card(dev, name):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from test_torch_fused_record import check_post_edge, identical, post_edge_args
 
     args, rays = post_edge_args(name, dev)
@@ -470,7 +477,7 @@ def test_post_is_exact_on_crafted_reject_edges_on_the_card(dev, name):
 @pytest.mark.parametrize("name", ["u_zero", "u_on_edge", "u_past_edge", "det_minus_bias",
                                   "sdet_zero", "v_zero"])
 def test_frame_is_exact_on_crafted_primary_edges_on_the_card(dev, name):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from test_torch_fused_record import check_frame_edge, frame_edge_args, identical
 
     args = frame_edge_args(name, dev)
@@ -483,7 +490,7 @@ def test_frame_is_exact_on_crafted_primary_edges_on_the_card(dev, name):
 @pytest.mark.parametrize("name", ["u_zero", "u_on_edge", "u_past_edge", "det_minus_bias",
                                   "sdet_zero", "v_zero"])
 def test_pre_is_exact_on_crafted_primary_edges_on_the_card(dev, name, t_total):
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from test_torch_fused_record import (check_frame_edge, frame_edge_args, identical,
                                          pre_edge_args)
 
@@ -497,7 +504,7 @@ def test_post_and_frame_at_the_triangle_cap_on_the_card(dev):
     """The 1024-triangle scene: a 64 KB record table in dynamic shared
     memory (past the 48 KB that needs the kernels' attribute): PRE, every
     POST call and FRAME."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN
+    from flexlight_tpu_torch.kernels import KERNELS, PLAIN
     from flexlight_tpu_torch.ops import fused as F
     from flexlight_tpu_torch.ops.buffers import build_scene_buffers
     from test_torch_fused_record import (cap_engine, frame_args, identical, post_calls,
@@ -640,7 +647,7 @@ def test_shade_list_walks_on_crafted_live_patterns_on_the_card(dev, kind, case):
     """Each call against its plain version, every row of both blocks; two
     launches (their lists' orders may differ) give identical blocks; each
     launch runs its list kernel once."""
-    from flexlight_tpu_torch.models.pathtracer import KERNELS
+    from flexlight_tpu_torch.kernels import KERNELS
     from flexlight_tpu_torch.ops import fused_kernel as SK
     from flexlight_tpu_torch.ops import shade_kernel as HK
     from test_torch_fused_record import identical

@@ -34,7 +34,8 @@ import jax.numpy as jnp  # noqa: E402
 import flexlight_tpu as jpkg  # noqa: E402
 from flexlight_tpu.ops.fused import render_mrt_fused_split as jax_fused_split  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
-from flexlight_tpu_torch.models.pathtracer import PLAIN, PathTracer  # noqa: E402
+from flexlight_tpu_torch.kernels import PLAIN  # noqa: E402
+from flexlight_tpu_torch.models.pathtracer import PathTracer  # noqa: E402
 from flexlight_tpu_torch.ops import fused as F  # noqa: E402
 from flexlight_tpu_torch.ops import rng as trng  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import build_scene_buffers  # noqa: E402

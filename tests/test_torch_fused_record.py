@@ -36,7 +36,8 @@ import torch
 
 import flexlight_tpu_torch as port
 from flexlight_tpu_torch import Config, _native, reset_global_registry
-from flexlight_tpu_torch.models.pathtracer import PLAIN, PathTracer
+from flexlight_tpu_torch.kernels import PLAIN
+from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.ops import fused as F
 from flexlight_tpu_torch.ops import fused_kernel as SK
 from flexlight_tpu_torch.ops import rng

@@ -94,7 +94,7 @@ def test_device_tensor_call_raises_instead_of_falling_back(monkeypatch):
     and raises when it cannot be had (no nvcc here); the plain version is
     never called."""
     from flexlight_tpu_torch import _native
-    from flexlight_tpu_torch.models.pathtracer import KERNELS
+    from flexlight_tpu_torch.kernels import KERNELS
 
     if _native._library is not None:
         pytest.skip("a kernel library is already loaded in this process")
@@ -115,12 +115,49 @@ def test_device_tensor_call_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
-    from flexlight_tpu_torch.models.pathtracer import KERNELS
+    from flexlight_tpu_torch.kernels import KERNELS
 
     before = [k.launches for k in KERNELS]
     img = torch.rand(8, 8, 4)
     torch.testing.assert_close(KERNELS.fxaa(img), KERNELS.fxaa.plain(img))
     assert [k.launches for k in KERNELS] == before
+
+
+def test_the_layers_below_the_renderers_never_import_them():
+    """No module under flexlight_tpu_torch's ops/, post/ or parallel/
+    imports its models/ (lazily inside a function neither), and the
+    rasterizer does not import the path tracer's module: the kernel table
+    (flexlight_tpu_torch.kernels), the post chain (post.chain) and the
+    scheme rule (ops.pathtrace.resolve_scheme) sit below the renderers."""
+    import ast
+    import pathlib
+
+    import flexlight_tpu_torch as port
+
+    root = pathlib.Path(port.__file__).parent
+
+    def imported(path):
+        """The dotted names a module's import statements reach."""
+        package = path.relative_to(root.parent).with_suffix("").parts[:-1]
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                yield from (alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                base = package[:len(package) + 1 - node.level] if node.level else ()
+                module = ".".join(base + ((node.module,) if node.module else ()))
+                yield module
+                yield from (f"{module}.{alias.name}" for alias in node.names)
+
+    models = f"{port.__name__}.models"
+    below = [path for layer in ("ops", "post", "parallel")
+             for path in sorted((root / layer).rglob("*.py"))]
+    assert len(below) > 20
+    wrong = [f"{path.relative_to(root)}: {name}" for path in below for name in imported(path)
+             if name == models or name.startswith(models + ".")]
+    assert not wrong, wrong
+    raster = list(imported(root / "models" / "rasterizer.py"))
+    assert f"{models}.base" in raster
+    assert not [name for name in raster if name.startswith(f"{models}.pathtracer")], raster
 
 
 def _engine(device="cpu"):

@@ -28,7 +28,7 @@ from flexlight_tpu.ops.traverse_mxu import build_tri_matrix, shadow_mxu, travers
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_kernel as tik  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry as tworld  # noqa: E402
-from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
+from flexlight_tpu_torch.ops.intersect import BIAS, POW32, mt_products  # noqa: E402
 from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater  # noqa: E402
 from tests.scenes import cornell_scene  # noqa: E402
 
@@ -83,7 +83,7 @@ def fp_tie_rays(w4, o3, d3, max_len, edge: float, any_hit: bool):
     eps = TIE_EPS
     d3 = tik._safe_dirs(d3)
     ml = max_len[:, None]
-    det, udet, vdet, sdet = tik._mt_products(w4, o3, d3)
+    det, udet, vdet, sdet = mt_products(w4, o3, d3)
     inv = 1.0 / det
     u, v, s = udet * inv, vdet * inv, sdet * inv
     lo = BIAS if any_hit else edge

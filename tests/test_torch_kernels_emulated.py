@@ -33,7 +33,8 @@ import pytest
 import torch
 
 from flexlight_tpu_torch import Config, _native
-from flexlight_tpu_torch.models.pathtracer import PLAIN, KernelSet, PathTracer
+from flexlight_tpu_torch.kernels import PLAIN, KernelSet
+from flexlight_tpu_torch.models.pathtracer import PathTracer
 from flexlight_tpu_torch.ops import fused as F
 from flexlight_tpu_torch.ops import fused_kernel as SK
 from flexlight_tpu_torch.ops import intersect_kernel as IK

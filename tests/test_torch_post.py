@@ -129,7 +129,7 @@ def test_first_pass_in_both_modes_matches_gather_oracle(imgs, mode):
 def test_packed_pass_matches_pallas_kernel(imgs, mode, which):
     """The port's packed pass (its plain version on CPU) against the JAX
     packed Pallas kernel in interpret mode, called as each mode's chain
-    calls it (models/pathtracer.py _filter_chain_packed), on a 16x24 crop
+    calls it (post/chain.py filter_chain_packed), on a 16x24 crop
     to bound the interpreter's time."""
     tp = [p[:16, :24].contiguous() for p in _packed(imgs, mode == "fast")]
     jp = [jnp.asarray(p.numpy()) for p in tp]
@@ -183,13 +183,13 @@ def test_temporal_ring_matches_exactly(imgs):
 
 @pytest.mark.parametrize("passes", [(3, 3), (2, 3), (3, 2)])
 def test_filter_chain_index_pattern_matches(monkeypatch, passes):
-    """_filter_chain_packed's ping-pong and dropped-attachment indexing
-    (models/pathtracer.py:113-146): every pass replaced by a stub that
+    """filter_chain_packed's ping-pong and dropped-attachment indexing
+    (post/chain.py): every pass replaced by a stub that
     tags its outputs, both chains must feed every pass, and the final one,
     the same tagged inputs."""
     from flexlight_tpu import Config
     from flexlight_tpu.models import pathtracer as jpt
-    from flexlight_tpu_torch.models import pathtracer as tpt
+    from flexlight_tpu_torch.post import chain as tpt
 
     def stubs(mod, as_array):
         log, counter = [], [100]
@@ -228,6 +228,6 @@ def test_filter_chain_index_pattern_matches(monkeypatch, passes):
     monkeypatch.setattr(tpt, "pack_rgba8", lambda x: torch.as_tensor(x)[..., 0].to(torch.int32))
     inputs = [np.full((2, 2, 4), v, np.float32) for v in (1, 2, 3, 4, 5)]
     jpt._filter_chain_packed(cfg, *[jnp.asarray(x) for x in inputs])
-    tpt._filter_chain_packed(cfg, *[torch.from_numpy(x) for x in inputs])
+    tpt.filter_chain_packed(cfg, *[torch.from_numpy(x) for x in inputs])
     assert tlog == jlog
     assert len(tlog) == sum(passes) + 1

@@ -48,6 +48,7 @@ from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry  # noqa: E402
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
 from flexlight_tpu_torch.ops.intersect_kernel import build_w4  # noqa: E402
+from flexlight_tpu_torch.post import chain  # noqa: E402
 from flexlight_tpu_torch.post.taa import TAAState  # noqa: E402
 from tests.scenes import cornell_scene  # noqa: E402
 from tests.test_torch_traverse import knife_edge_rays  # noqa: E402
@@ -186,7 +187,7 @@ def test_raster_frame_with_aa_matches_flexlight_tpu(monkeypatch, recorded_casts,
     within `reach` (FXAA: its 3 x 3 test and 6 search steps; TAA: its
     3 x 3 clamp)."""
     inputs = {"port": [], "jax": []}
-    real_port = R.KERNELS.fxaa if aa == "fxaa" else R.taa_apply
+    real_port = R.KERNELS.fxaa if aa == "fxaa" else chain.taa_apply
     real_jax = JR.fxaa_auto if aa == "fxaa" else JR.taa_apply
 
     def port_rec(*args):
@@ -202,7 +203,7 @@ def test_raster_frame_with_aa_matches_flexlight_tpu(monkeypatch, recorded_casts,
         kernels = R.KERNELS._replace(fxaa=port_rec)
         monkeypatch.setattr(JR, "fxaa_auto", jax_rec)
     else:
-        monkeypatch.setattr(R, "taa_apply", port_rec)
+        monkeypatch.setattr(chain, "taa_apply", port_rec)
         monkeypatch.setattr(JR, "taa_apply", jax_rec)
     monkeypatch.setattr(JR, "raster_frame", jax.jit(
         JR.raster_frame.__wrapped__,

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from flexlight_tpu_torch import Config, Texture
-from flexlight_tpu_torch.models.pathtracer import PLAIN
+from flexlight_tpu_torch.kernels import PLAIN
 from flexlight_tpu_torch.models.rasterizer import Rasterizer
 from flexlight_tpu_torch.ops import raster_kernel as RK
 from flexlight_tpu_torch.scenes import stand_in_wood_texture, theater

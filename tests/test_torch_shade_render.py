@@ -35,7 +35,8 @@ import flexlight_tpu as jpkg  # noqa: E402
 from flexlight_tpu.ops import buffers as jbuf  # noqa: E402
 from flexlight_tpu.ops.pathtrace import render_mrt as jrender  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
-from flexlight_tpu_torch.models.pathtracer import KERNELS, PLAIN, PathTracer  # noqa: E402
+from flexlight_tpu_torch.kernels import KERNELS, PLAIN  # noqa: E402
+from flexlight_tpu_torch.models.pathtracer import PathTracer  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import shade as S  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402

@@ -23,7 +23,7 @@ import flexlight_tpu as jpkg  # noqa: E402
 from flexlight_tpu.ops import buffers as jbuf  # noqa: E402
 from flexlight_tpu.ops.fused import render_mrt_fused as jax_fused  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
-from flexlight_tpu_torch.models.pathtracer import PLAIN  # noqa: E402
+from flexlight_tpu_torch.kernels import PLAIN  # noqa: E402
 from flexlight_tpu_torch.ops import vec3 as v3  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
 from flexlight_tpu_torch.ops.pathtrace import render_mrt  # noqa: E402

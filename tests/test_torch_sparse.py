@@ -33,7 +33,7 @@ from flexlight_tpu_torch import _native  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_sparse as S  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_sparse_kernel as K  # noqa: E402
-from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
+from flexlight_tpu_torch.ops.intersect import BIAS, POW32, mt_products  # noqa: E402
 from flexlight_tpu_torch.scenes import stand_in_mesh  # noqa: E402
 from test_torch_sparse_record import RING, walk_scene  # noqa: E402  (as pytest collects it)
 
@@ -130,8 +130,8 @@ def rounding(w4, o3, d3):
     ulp of the sum of the absolute terms of each product, carried through
     the quotients."""
     d3 = IK._safe_dirs(d3)
-    det, udet, vdet, sdet = IK._mt_products(w4, o3, d3)
-    mag = IK._mt_products(w4.abs(), tuple(c.abs() for c in o3), tuple(c.abs() for c in d3))
+    det, udet, vdet, sdet = mt_products(w4, o3, d3)
+    mag = mt_products(w4.abs(), tuple(c.abs() for c in o3), tuple(c.abs() for c in d3))
     e_det, e_u, e_v, e_s = (m * ULP for m in mag)
     inv = 1.0 / det
     u, v, s = udet * inv, vdet * inv, sdet * inv

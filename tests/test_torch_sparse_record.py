@@ -2,7 +2,7 @@
 ops.intersect_sparse.tri_record, ops.intersect_sparse_kernel).
 
 - The record holds the distinct magnitudes of tri_rows' non-zero terms,
-  and its four products equal `intersect_kernel._mt_products` (the
+  and its four products equal `intersect.mt_products` (the
   64-term sums in k order) under torch.equal: rays with axis-aligned and
   zero directions, zero padding records among the triangles.
 - Each early reject of the kernels takes only pairs that the accept window
@@ -24,10 +24,9 @@ import pytest
 import torch
 
 from flexlight_tpu_torch import _native
-from flexlight_tpu_torch.ops import intersect_kernel as IK
+from flexlight_tpu_torch.ops import intersect as I
 from flexlight_tpu_torch.ops import intersect_sparse as S
 from flexlight_tpu_torch.ops import intersect_sparse_kernel as K
-from flexlight_tpu_torch.ops import traverse_mxu as TM
 from flexlight_tpu_torch.ops.intersect import BIAS, POW32
 
 RING = 3             # csrc/sparse.cu FL_RING: tiles staged at once
@@ -111,14 +110,14 @@ def _triangles(seed, t):
 def test_record_products_equal_the_w_rows_products():
     wg, ids = _triangles(31, 300)
     rec = S.tri_record(wg, ids)
-    det, udet, vdet, sdet = IK.tri_rows(wg, ids)
+    det, udet, vdet, sdet = I.tri_rows(wg, ids)
     # the record's values are the rows' magnitudes, in their places
     n, v0n, c, g, e2, e1 = rec[:, 0:3], rec[:, 3], rec[:, 4:7], rec[:, 7:10], rec[:, 10:13], \
         rec[:, 13:16]
     assert torch.equal(det[:, 4:7], -n) and torch.equal(sdet[:, 1:4], n)
     assert torch.equal(sdet[:, 0], -v0n)
     assert torch.equal(udet[:, 4:7], -c) and torch.equal(vdet[:, 4:7], -g)
-    assert torch.equal(udet[:, 7:16], TM._skew(e2)) and torch.equal(vdet[:, 7:16], -TM._skew(e1))
+    assert torch.equal(udet[:, 7:16], I._skew(e2)) and torch.equal(vdet[:, 7:16], -I._skew(e1))
     # padding records: all zeros, as build_tiled pads its last tile
     scene = S.build_tiled(wg, ids)
     padded = scene.rec.reshape(-1, 16)
@@ -135,7 +134,7 @@ def test_record_products_equal_the_w_rows_products():
     o[::13, rng.integers(0, 3)] = 0.0
     o3 = tuple(torch.from_numpy(np.ascontiguousarray(o[:, k])) for k in range(3))
     d3 = tuple(torch.from_numpy(np.ascontiguousarray(d[:, k])) for k in range(3))
-    ref = IK._mt_products(w4, o3, d3)
+    ref = I.mt_products(w4, o3, d3)
     got = K.record_products([padded[None, :, k] for k in range(16)],
                             [c[:, None] for c in o3], [c[:, None] for c in d3])
     for name, a, b in zip(("det", "udet", "vdet", "sdet"), got, ref):

@@ -26,9 +26,9 @@ from flexlight_tpu.ops.pathtrace import render_mrt as jrender  # noqa: E402
 from flexlight_tpu.post import taa as jtaa  # noqa: E402
 from flexlight_tpu.post.temporal import TemporalState as JTemporal  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
-from flexlight_tpu_torch.models import pathtracer as TP  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import taa_state_from_numpy  # noqa: E402
 from flexlight_tpu_torch.ops.pathtrace import MRT  # noqa: E402
+from flexlight_tpu_torch.post import chain as TP  # noqa: E402
 from flexlight_tpu_torch.post import taa as ttaa  # noqa: E402
 from flexlight_tpu_torch.post.temporal import TemporalState  # noqa: E402
 from tests.scenes import cornell_scene  # noqa: E402

@@ -26,7 +26,7 @@ from flexlight_tpu_torch.ops import intersect_kernel as tik  # noqa: E402
 from flexlight_tpu_torch.ops import traverse as ttrv  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry as tworld  # noqa: E402
-from flexlight_tpu_torch.ops.intersect import BIAS, POW32  # noqa: E402
+from flexlight_tpu_torch.ops.intersect import BIAS, POW32, mt_products  # noqa: E402
 from tests.scenes import cornell_scene  # noqa: E402
 
 SIZE = 24
@@ -46,7 +46,7 @@ def knife_edge_rays(w4, o3, d3, max_len, edge: float, any_hit: bool):
     triangles lie within EPS_REL * max(1, s)."""
     d3 = tik._safe_dirs(d3)
     ml = max_len[:, None]
-    det, udet, vdet, sdet = tik._mt_products(w4, o3, d3)
+    det, udet, vdet, sdet = mt_products(w4, o3, d3)
     inv = 1.0 / det
     u, v, s = udet * inv, vdet * inv, sdet * inv
     lo = BIAS if any_hit else edge

@@ -25,6 +25,7 @@ from flexlight_tpu.ops.geometry import world_geometry as jworld  # noqa: E402
 import flexlight_tpu_torch as port  # noqa: E402
 from flexlight_tpu_torch.models.pathtracer import PathTracer  # noqa: E402
 from flexlight_tpu_torch.models.rasterizer import Rasterizer  # noqa: E402
+from flexlight_tpu_torch.ops import intersect as I  # noqa: E402
 from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import traverse_mxu as TM  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
@@ -121,10 +122,11 @@ def test_traverse_mxu_blocked_path(cornell):
 
 
 def test_mt_rows_moved_without_a_change(cornell):
-    """tri_rows / _mt_products live in ops.traverse_mxu (the reference's
-    home); ops.intersect_kernel uses the same objects, and W is the
-    reference's layout."""
-    assert IK.tri_rows is TM.tri_rows and IK._mt_products is TM._mt_products
+    """tri_rows / mt_products live in ops.intersect; ops.traverse_mxu and
+    ops.intersect_kernel use the same objects, and W is the reference's
+    layout."""
+    assert IK.tri_rows is TM.tri_rows is I.tri_rows
+    assert IK.mt_products is TM.mt_products is I.mt_products
     w4 = TM._planes(cornell["tw"])
     assert torch.equal(w4, cornell["w4"])
     np.testing.assert_allclose(cornell["tw"].numpy(), np.asarray(cornell["jw"]), rtol=1e-6,
