@@ -68,26 +68,30 @@ Phases, one line each (any failure exits non-zero):
      max <= 0.5).
   5. the scheme="kernel" path: the same frame at half size (960x540 by
      default), 2 frames, through the same entry points with the renderer's
-     scheme set to "kernel"; checks that the traversal kernels were
-     launched and the frames against their plain frames as above.
+     scheme set to "kernel"; checks that the traversal kernels (and, by
+     default on theater's textured floor, the shade kernel) were launched
+     and the frames against their plain frames as above.
   6. the sparse path: the dragon stand-in (scenes.dragon: seeded OBJ files
      from --seed under build/objects/, 44,890 triangles, glass dragon and
      sphere) at 1080p, full pipeline, through FlexLight(...).renderer =
      "pathtracer" and render_frame(), the monkey head's look-at animation
      applied before every frame; scheme "auto" must resolve to "sparse",
      and every frame must launch the flags 10x, the key 9x, closest hit 5x
-     and any hit 5x. The frames against the same frames with the plain
-     versions as above (the plain worklist casts take seconds each at
-     1080p: ~20 s per plain frame).
-  7. the shade-kernel paths, through the same entry points with the
-     renderer's shade_kernel switch on: (a) the dragon stand-in at 1080p as
-     in phase 6, which must launch interp_shade and its alive list 5x per
-     frame (shade and POST's list never) besides the worklist kernels' 10 /
-     9 / 5 / 5, its frames against phase 6's plain frames (the plain
-     shading versions are the eager stage functions, so those frames
-     serve); (b) theater at 1080p on scheme="kernel", 2 frames, which must
-     launch shade and its list (POST's list kernel) 5x per frame
-     (interp_shade and the alive list never), against their plain frames.
+     and any hit 5x, and (the default shading route: no textures)
+     interp_shade and its alive list 5x (shade and POST's list never). The
+     frames against the same frames with the plain versions as above (the
+     plain worklist casts take seconds each at 1080p: ~20 s per plain
+     frame). The phase's tracers are freed before phase 7, whose peaks
+     then compare with this phase's.
+  7. the shading routes, through the same entry points: (a) the dragon
+     stand-in at 1080p as in phase 6 with the renderer's shade_kernel
+     switch off (the eager loop), which must launch no shading kernel
+     besides the worklist kernels' 10 / 9 / 5 / 5, its frames against
+     phase 6's plain frames (the plain shading versions are the eager
+     stage functions, so those frames serve); (b) theater at 1080p on
+     scheme="kernel" with the switch on, 2 frames, which must launch shade
+     and its list (POST's list kernel) 5x per frame (interp_shade and the
+     alive list never), against their plain frames.
   8. the fused path: wave (scenes.wave: 4 pillars on a plane, 50
      triangles, 1 light, a 2x2048 PBR atlas) at 1080p, full pipeline,
      through FlexLight(...).renderer = "pathtracer" with the renderer's
@@ -2427,7 +2431,10 @@ def drive(args, dev, smi: str) -> int:
                                            step=animate)[:2]
     expect = {"sparse_flags": 2 * bounces, "sparse_key": 2 * bounces - 1,
               "sparse_closest": bounces, "sparse_any": bounces}
-    expect_launches("the dragon stand-in", sparse_launches, args.frames, expect)
+    # no textures: by default the bounces shade in interp_shade
+    expect_launches("the dragon stand-in", sparse_launches, args.frames,
+                    dict(expect, interp_shade=bounces, alive_list=bounces, shade=0,
+                         sp_live_list=0))
     idle = [name for name in ("first_blur", "second_blur", "final_blur", "fxaa")
             if sparse_launches[name] == 0]
     if idle:
@@ -2443,20 +2450,21 @@ def drive(args, dev, smi: str) -> int:
     check_frames("sparse-path", frames, plain_frames, (h, w, 3))
     print(f"[phase] sparse path: {time.perf_counter() - t0:.1f} s (the plain frames "
           f"{plain_s:.1f} s)", flush=True)
-    del frames, e
+    # free the phase's tracers, so that the next phase's peak compares
+    del frames, e, de, plain
+    torch.cuda.empty_cache()
 
     # ---- 7. the shade-kernel paths ------------------------------------------
     t0 = time.perf_counter()
-    # (a) the dragon stand-in: interp_shade, against phase 6's plain frames
+    # (a) the dragon stand-in on the eager loop, against phase 6's plain frames
     e, animate = dragon_engine(w, h)
     e.renderer = "pathtracer"
-    e.renderer.shade_kernel = True
-    frames, step_launches = drive_frames("shade-kernel dragon", e.renderer, args.frames,
-                                         step=animate)[:2]
-    expect_launches("the dragon with shade_kernel", step_launches, args.frames,
-                    dict(expect, interp_shade=bounces, alive_list=bounces, shade=0,
-                         sp_live_list=0))
-    check_frames("shade-kernel dragon", frames, plain_frames, (h, w, 3))
+    e.renderer.shade_kernel = False
+    frames, eager_launches = drive_frames("eager-shading dragon", e.renderer, args.frames,
+                                          step=animate)[:2]
+    expect_launches("the dragon with shade_kernel False", eager_launches, args.frames,
+                    dict(expect, interp_shade=0, alive_list=0, shade=0, sp_live_list=0))
+    check_frames("eager-shading dragon", frames, plain_frames, (h, w, 3))
     del frames, plain_frames, e
     torch.cuda.empty_cache()
     # (b) theater on scheme="kernel": shade, against its plain frames
@@ -2709,8 +2717,8 @@ def drive(args, dev, smi: str) -> int:
         launches[name] = kernel_launches[name]
     for name in sparse_names:
         launches[name] = sparse_launches[name]
-    launches["interp_shade"] = step_launches["interp_shade"]
-    launches["alive_list"] = step_launches["alive_list"]
+    launches["interp_shade"] = sparse_launches["interp_shade"]
+    launches["alive_list"] = sparse_launches["alive_list"]
     launches["shade"] = shade_launches["shade"]
     results["shade"].update(list_launches=shade_launches["sp_live_list"])
     launches["fused_frame"] = fused_launches["fused_frame"]

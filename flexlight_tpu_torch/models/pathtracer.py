@@ -16,10 +16,12 @@ and the filter and FXAA kernels either way; scheme="scan" and "packet",
 flexlight_tpu's own casts in plain XLA, cast in plain PyTorch
 (ops.traverse), and so do its CPU routes scheme="mxu" and "clustered"
 (ops.traverse_mxu, ops.traverse_clustered). TAA (antialiasing="taa",
-post.taa) is plain PyTorch, as in flexlight_tpu. With the renderer's
-`shade_kernel` switch on (off by default, as in flexlight_tpu), the
-kernel and sparse schemes shade each bounce in one kernel: interp_shade
-on scenes without textures (1x1 atlases), else shade.
+post.taa) is plain PyTorch, as in flexlight_tpu. The kernel and sparse
+schemes shade each bounce in one kernel, interp_shade on scenes without
+textures (1x1 atlases), else shade (<= 256 lights): by the renderer's
+`shade_kernel` switch, None (the default: on a CUDA device where the
+scene allows, else the eager loop), True (always; raises where no kernel
+serves) or False (the eager loop, flexlight_tpu's default).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from .base import Renderer
 def frame_pipeline(buffers, cam_pos, view, random_seed, temporal_state: TemporalState,
                    taa_state: TAAState | None, width: int, height: int, config: Config,
                    kernels: KernelSet = KERNELS, scheme: str = "kernel",
-                   shade_kernel: bool = False, tile: int = 1024):
+                   shade_kernel: bool | None = None, tile: int = 1024):
     """One full frame: MRT path-trace pass (traced: fl.render_mrt) + post.
     Returns (display, temporal state, TAA state)."""
     with span("fl.render_mrt"):
@@ -53,16 +55,17 @@ def frame_pipeline(buffers, cam_pos, view, random_seed, temporal_state: Temporal
 class PathTracer(Renderer):
     """The path tracer with the reference's surface (render / halt /
     updateScene / updatePrimaryLightSources / fps / fpsLimit), on one
-    explicit torch device. `shade_kernel` (an attribute too) shades the
-    bounces of the kernel and sparse schemes in the kernels of ops.shade;
-    a frame raises where they cannot serve (render_mrt). `tile` is the
-    packet of scheme="packet"."""
+    explicit torch device. `shade_kernel` (an attribute too) picks how the
+    bounces of the kernel and sparse schemes shade: None by the scene and
+    the device, True in the kernels of ops.shade (a frame raises where they
+    cannot serve), False eagerly (render_mrt). `tile` is the packet of
+    scheme="packet"."""
 
     type = "pathtracer"
 
     def __init__(self, width, height, scene, camera, config, device,
                  scheme: str = "auto", kernels: KernelSet = KERNELS,
-                 shade_kernel: bool = False, tile: int = 1024):
+                 shade_kernel: bool | None = None, tile: int = 1024):
         super().__init__(width, height, scene, camera, config, device)
         self.scheme = scheme
         self.kernels = kernels

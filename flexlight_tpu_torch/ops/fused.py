@@ -115,17 +115,24 @@ def fused_eligible(buffers: SceneBuffers) -> bool:
             and all(a.shape[0] * a.shape[1] <= MAX_TEXELS for a in atlases))
 
 
-def carry_from_state(st: torch.Tensor) -> BounceCarry:
+def carry_views(st: torch.Tensor) -> BounceCarry:
+    """The carry as views of the state block's rows, alive, tri and
+    dont_filter as their float rows (0 / 1, a triangle index)."""
     r3 = lambda k: (st[k], st[k + 1], st[k + 2])  # noqa: E731
     return BounceCarry(
-        alive=st[ALIVE] > 0.0, tri=st[TRI].to(torch.int32),
-        hs=st[HS], hu=st[HU], hv=st[HV],
+        alive=st[ALIVE], tri=st[TRI], hs=st[HS], hu=st[HU], hv=st[HV],
         ray_origin=r3(RAY_ORIGIN), ray_dir=r3(RAY_DIR), last_hit_point=r3(LAST_HIT),
         importancy=r3(IMPORTANCY), original_color=r3(ORIGINAL_COLOR),
-        dont_filter=st[DONT_FILTER] > 0.0, final_color=r3(FINAL_COLOR),
+        dont_filter=st[DONT_FILTER], final_color=r3(FINAL_COLOR),
         render_id=tuple(st[RENDER_ID + k] for k in range(4)),
         glass=st[GLASS], original_rme_x=st[RME_X], original_tpo_x=st[TPO_X],
         first_ray_length=st[FIRST_RAY_LENGTH])
+
+
+def carry_from_state(st: torch.Tensor) -> BounceCarry:
+    c = carry_views(st)
+    return c._replace(alive=c.alive > 0.0, tri=c.tri.to(torch.int32),
+                      dont_filter=c.dont_filter > 0.0)
 
 
 def carry_rows(c: BounceCarry) -> list:

@@ -18,9 +18,10 @@ same around the plain casts of ops.traverse_mxu / ops.traverse_clustered
 runs everything but bounce_tex in two fused kernels whose plain versions
 are built from the same stages, and scheme="fused" the whole frame in
 one kernel whose plain version is the fused_split frame. On the kernel
-and sparse schemes, render_mrt(shade_kernel=True) runs the shading in
-the kernels of ops.shade instead (bounce_shade, or bounce_pre + a
-trivial bounce_tex + bounce_shade), through light_trace's hooks.
+and sparse schemes the shading may run in the kernels of ops.shade
+instead (bounce_shade, or bounce_pre + a trivial bounce_tex +
+bounce_shade), through light_trace's hooks: on a CUDA device by default,
+where the scene allows (render_mrt's `shade_kernel`).
 
 The carry has no counterpart of flexlight_tpu's `original_id_acc`: no
 render target reads it.
@@ -302,7 +303,8 @@ def bounce_pre(carry: BounceCarry, i: int, mat, config):
     Returns (carry, BounceSurface)."""
     zero = torch.zeros_like(carry.hs)
     importance_len = v3.norm3(v3.mul3(carry.importancy, carry.original_color))
-    alive = carry.alive & (importance_len >= config.min_importancy * SQRT3)
+    # logical_and: the shade kernel's drop-in keeps alive as a float row
+    alive = torch.logical_and(carry.alive, importance_len >= config.min_importancy * SQRT3)
     m = alive
     rowt = fetch_rows_t(mat, carry.tri)      # [49, N]
     rot = tuple(rowt[40 + k] for k in range(9))
@@ -520,14 +522,18 @@ def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
 
     The hooks are flexlight_tpu's (ops/pathtrace.py:806-852), through
     which the shading kernels of ops.shade enter: `bounce_post_impl`
-    takes bounce_post's place after the eager bounce_pre and bounce_tex,
-    `bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
-    traverse_soa, shadow_soa)` the whole bounce. Traced, bounce i is the
-    span fl.bounce {i}."""
+    (ops.shade.make_shade_bounce_post) takes bounce_post's place after
+    the eager bounce_pre and bounce_tex, `bounce_step_impl(carry, i, mat,
+    ndc2, cos_sample_n, random_seed, traverse_soa, shadow_soa)`
+    (ops.shade.make_fused_bounce_step) the whole bounce. Traced, bounce i
+    is the span fl.bounce {i, shade}, `shade` the route: "interp_shade"
+    (the step hook), "shade" (the post hook) or "eager"."""
     post = bounce_post if bounce_post_impl is None else bounce_post_impl
+    shade = ("interp_shade" if bounce_step_impl is not None
+             else "eager" if bounce_post_impl is None else "shade")
     carry = bounce_carry_init(primary_parts, camera_pos, direction3, aux)
     for i in range(config.max_reflections):
-        with span("fl.bounce", i=i):
+        with span("fl.bounce", i=i, shade=shade):
             if bounce_step_impl is not None:
                 carry = bounce_step_impl(carry, i, mat, ndc2, cos_sample_n, random_seed,
                                          traverse_soa, shadow_soa)
@@ -683,7 +689,7 @@ def scheme_casts(scheme: str, buffers: SceneBuffers, world_geom, kernels, tile: 
 
 def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "kernel",
-               kernels=None, shade_kernel: bool = False, tile: int = 1024,
+               kernels=None, shade_kernel: bool | None = None, tile: int = 1024,
                row0: int = 0, rows: int | None = None, sample_offset: int = 0,
                local_samples: int | None = None, with_raw_aux: bool = False):
     """Full primary + bounce render to the MRT contract (glsl:601-646).
@@ -711,13 +717,15 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     BLOCK_TILE_MIN_TRIS triangles on, the sparse and clustered schemes
     cast in block-tiled ray order.
 
-    `shade_kernel=True` (kernel and sparse schemes) runs each bounce's
-    shading in a kernel of ops.shade, routed as flexlight_tpu routes
-    (ops/pathtrace.py:1320-1345): scenes whose three atlases are 1x1 take
-    `kernels.interp_shade` (bounce_pre, texture select and bounce_shade),
-    other scenes with <= 256 lights `kernels.shade` (bounce_shade); default
-    ops.shade_kernel's wrappers. Where neither applies, or on another
-    scheme, it raises.
+    The kernel and sparse schemes may shade each bounce in a kernel of
+    ops.shade, routed as flexlight_tpu routes (ops/pathtrace.py:1320-1345):
+    scenes whose three atlases are 1x1 take `kernels.interp_shade`
+    (bounce_pre, texture select and bounce_shade), other scenes with <= 256
+    lights `kernels.shade` (bounce_shade); default ops.shade_kernel's
+    wrappers. `shade_kernel` picks the route (ops.shade.bounce_shading):
+    None (the default) takes a kernel where the scene allows on a CUDA
+    device and the eager loop elsewhere, True takes a kernel and raises
+    where none serves or on another scheme, False the eager loop.
 
     `row0` / `rows` render a horizontal strip of the image (tile sharding,
     parallel.tile_sharding); `sample_offset` / `local_samples` a slice of
@@ -731,7 +739,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
 
     Traced (kernel, sparse, scan, packet, mxu and clustered schemes): the
     camera rays and the primary cast are the span fl.primary, each bounce
-    fl.bounce {i} (light_trace), the render targets fl.mrt."""
+    fl.bounce {i, shade} (light_trace), the render targets fl.mrt."""
     if scheme in FUSED_SCHEMES:
         if shade_kernel:
             raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
@@ -744,23 +752,9 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                       kernels=kernels, row0=row0, rows=rows, sample_offset=sample_offset,
                       local_samples=local_samples, with_raw_aux=with_raw_aux)
     resolve_scheme(scheme)
-    if shade_kernel and scheme not in ("kernel", "sparse"):
-        raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
-                         f"'sparse', not of scheme={scheme!r}")
-    bounce_post_impl = bounce_step_impl = None
-    if shade_kernel:
-        from . import shade
+    from . import shade
 
-        if shade.fused_step_eligible(buffers):
-            bounce_step_impl = shade.make_fused_bounce_step(buffers, camera_pos, config,
-                                                            kernels)
-        elif shade.shade_kernel_eligible(buffers):
-            bounce_post_impl = shade.make_shade_bounce_post(buffers, camera_pos, config,
-                                                            kernels)
-        else:
-            raise ValueError(f"shade_kernel=True: the scene has {buffers.lights.shape[0]} "
-                             f"lights, the shading kernels take <= {shade.MAX_LIGHTS}")
-
+    route = shade.bounce_shading(buffers, scheme, shade_kernel, buffers.geometry.device.type)
     with span("fl.primary"):
         dev = buffers.geometry.device
         camera_pos = upload(camera_pos, dev)
@@ -789,6 +783,14 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         # primaries replace the reference's watertight raster pass, so they take
         # the relaxed edge window; bounce rays keep the exact +BIAS window
         primary_parts = traverse_soa(origin3, direction3, edge=-BIAS)
+
+    # the drop-ins made after the primary cast, from the uploaded camera: a
+    # frame's peak before its bounces holds nothing of theirs
+    bounce_post_impl = bounce_step_impl = None
+    if route == "interp_shade":
+        bounce_step_impl = shade.make_fused_bounce_step(buffers, camera_pos, config, kernels)
+    elif route == "shade":
+        bounce_post_impl = shade.make_shade_bounce_post(buffers, camera_pos, config, kernels)
 
     zero = torch.zeros_like(primary_parts[0])
     one = torch.ones_like(zero)

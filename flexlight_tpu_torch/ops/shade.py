@@ -1,8 +1,10 @@
 """The per-bounce shading kernels of the kernel and sparse schemes
 (flexlight_tpu/ops/fused.py:1344-1707): kernels 11 and 12 of the port.
 
-render_mrt(shade_kernel=True) runs each bounce's shading in one kernel
-launch instead of hundreds of torch ops, with flexlight_tpu's routing:
+A kernel- or sparse-scheme frame shades each bounce in one kernel launch
+instead of hundreds of torch ops, with flexlight_tpu's routing
+(`bounce_shading`: by default on a CUDA device, render_mrt's
+`shade_kernel`):
 
     all three atlases 1x1 (fused_step_eligible)   interp_shade: bounce_pre
         from the ray's material row, the 1x1-atlas texture select and
@@ -18,9 +20,13 @@ torch, as in flexlight_tpu (:1516-1520, :1701-1705).
 The kernels work on two blocks, each allocated once per frame:
 - the state, float32 [ST_C, N]: the carry rows of ops/fused.py (N_CARRY)
   and the surface rows SURF .. SURF + 4 (m, smooth normal, geometry
-  offset). The drop-in copies into it the carry rows that changed since
-  the last launch (a row that is already a view of its state row is not
-  copied) and reads the updated carry back as views;
+  offset). It holds the carry for the whole frame: the drop-in copies
+  into it the rows of a carry that are not yet its rows (the first
+  bounce's, from bounce_carry_init, and bounce_pre's alive and ray origin
+  on the shade route), `_apply_commit` writes bounce_apply's and
+  bounce_commit's results into its rows in place, and the carry the
+  drop-in returns is views of them (alive, tri and dont_filter as float
+  rows), so no second carry lives beside the blocks;
 - the request, float32 [REQ_C, N] (shade) or [REQ_STEP_C, N]
   (interp_shade: the request, then emis and tpo for bounce_apply).
 A dead ray's request columns keep what they held (the kernels write
@@ -45,11 +51,12 @@ import torch
 
 from . import vec3 as v3
 from .buffers import AtlasTable, SceneBuffers
-from .fused import (ALIVE, DONT_FILTER, FIRST_RAY_LENGTH, GLASS, IMPORTANCY, MAX_LIGHTS,
-                    ORIGINAL_COLOR, RAY_ORIGIN, RENDER_ID, RME_X, SURF, TEX_C, TPO_X, _Lights,
-                    carry_from_state, carry_rows)
-from .pathtrace import (BounceCarry, BounceSurface, ReservoirPick, ShadeRequest,
-                        bounce_apply, bounce_commit, bounce_pre, bounce_shade, bounce_tex)
+from .fused import (ALIVE, DONT_FILTER, FINAL_COLOR, FIRST_RAY_LENGTH, GLASS, HS, HU, HV,
+                    IMPORTANCY, LAST_HIT, MAX_LIGHTS, ORIGINAL_COLOR, RAY_DIR, RAY_ORIGIN,
+                    RENDER_ID, RME_X, SURF, TEX_C, TPO_X, TRI, _Lights, carry_from_state,
+                    carry_rows, carry_views)
+from .pathtrace import (BounceCarry, BounceSurface, ReservoirPick, ShadeRequest, bounce_pre,
+                        bounce_shade, bounce_tex, next_ray_dir, reservoir_finish)
 
 # the state block: the carry, then m, the smooth normal and the geometry offset
 ST_C = SURF + 5
@@ -82,6 +89,37 @@ def fused_step_eligible(buffers: SceneBuffers) -> bool:
     atlases = (buffers.albedo_atlas, buffers.pbr_atlas, buffers.tpo_atlas)
     return (shade_kernel_eligible(buffers)
             and all(a.shape[0] * a.shape[1] == 1 for a in atlases))
+
+
+SHADED_SCHEMES = ("kernel", "sparse")
+
+
+def bounce_shading(buffers: SceneBuffers, scheme: str, shade_kernel: bool | None,
+                   device_type: str) -> str:
+    """How the bounces of a frame on a cast scheme (ops.pathtrace.CAST_SCHEMES)
+    shade: "interp_shade" (fused_step_eligible), "shade"
+    (shade_kernel_eligible) or "eager" (the stage functions as torch ops).
+    shade_kernel=None follows the scene on the kernel and sparse schemes on
+    a device of type "cuda", and is "eager" on a scene neither kernel takes,
+    on another scheme and on the CPU, where the wrappers run their plain
+    versions (the same torch ops, packed: nothing to gain); True takes a
+    kernel and raises where none serves; False is "eager"."""
+    if shade_kernel is None:
+        if device_type != "cuda" or scheme not in SHADED_SCHEMES:
+            return "eager"
+    elif not shade_kernel:
+        return "eager"
+    elif scheme not in SHADED_SCHEMES:
+        raise ValueError(f"shade_kernel=True shades the bounces of scheme='kernel' and "
+                         f"'sparse', not of scheme={scheme!r}")
+    if fused_step_eligible(buffers):
+        return "interp_shade"
+    if shade_kernel_eligible(buffers):
+        return "shade"
+    if shade_kernel is None:
+        return "eager"
+    raise ValueError(f"shade_kernel=True: the scene has {buffers.lights.shape[0]} lights, the "
+                     f"shading kernels take <= {MAX_LIGHTS}")
 
 
 def trivial_atlas(buffers: SceneBuffers) -> torch.Tensor:
@@ -193,34 +231,60 @@ def _pack_rows(state, rows, first: int = 0):
         dst.copy_(x)
 
 
-def _shaded_carry(carry: BounceCarry, st: torch.Tensor) -> BounceCarry:
-    """`carry` with the fields bounce_shade changes read from the state."""
-    r3 = lambda k: (st[k], st[k + 1], st[k + 2])  # noqa: E731
-    return carry._replace(
-        importancy=r3(IMPORTANCY), original_color=r3(ORIGINAL_COLOR),
-        dont_filter=st[DONT_FILTER] > 0.0,
-        render_id=(st[RENDER_ID], st[RENDER_ID + 1], st[RENDER_ID + 2], carry.render_id[3]),
-        glass=st[GLASS], original_rme_x=st[RME_X], original_tpo_x=st[TPO_X],
-        first_ray_length=st[FIRST_RAY_LENGTH])
+def _r3(block: torch.Tensor, k: int) -> tuple:
+    return block[k], block[k + 1], block[k + 2]
 
 
-def _request(rq: torch.Tensor, m: torch.Tensor, carry: BounceCarry) -> ShadeRequest:
+def _request(rq: torch.Tensor, m: torch.Tensor) -> ShadeRequest:
     """The ShadeRequest of the request block. A dead ray's columns are
-    stale: its ray_dir is the carry's (bounce_apply keeps it) and its
-    write_id_w false; the rest of what bounce_apply reads of them is
-    masked there (final_color and ray_dir by m, the shadow cast by
-    alive=m)."""
-    r3 = lambda k: (rq[k], rq[k + 1], rq[k + 2])  # noqa: E731
+    stale; what `_apply_commit` reads of them is masked there (write_id_w
+    here; render_id, final_color, ray_dir and the hit by m; the shadow
+    cast by alive=m)."""
     return ShadeRequest(
-        m=m, ray_dir=v3.where3(m, r3(Q_RAY_DIR), carry.ray_dir),
-        smooth_normal=r3(Q_SMOOTH_NORMAL), sign_dir=rq[Q_SIGN_DIR],
-        random_sphere=r3(Q_RANDOM_SPHERE), roughness_brdf=rq[Q_ROUGHNESS_BRDF],
-        is_solid=rq[Q_IS_SOLID] > 0.0, write_id_w=(rq[Q_WRITE_ID_W] > 0.0) & m,
+        m=m, ray_dir=_r3(rq, Q_RAY_DIR), smooth_normal=_r3(rq, Q_SMOOTH_NORMAL),
+        sign_dir=rq[Q_SIGN_DIR], random_sphere=_r3(rq, Q_RANDOM_SPHERE),
+        roughness_brdf=rq[Q_ROUGHNESS_BRDF], is_solid=rq[Q_IS_SOLID] > 0.0,
+        write_id_w=(rq[Q_WRITE_ID_W] > 0.0) & m,
         pick=ReservoirPick(
-            local_color=r3(Q_LOCAL_COLOR), res_num=rq[Q_RES_NUM].to(torch.int32),
+            local_color=_r3(rq, Q_LOCAL_COLOR), res_num=rq[Q_RES_NUM].to(torch.int32),
             show_color=rq[Q_SHOW_COLOR] > 0.0, show_shadow=rq[Q_SHOW_SHADOW] > 0.0,
-            offset_target=r3(Q_OFFSET_TARGET), light_dir=r3(Q_LIGHT_DIR),
+            offset_target=_r3(rq, Q_OFFSET_TARGET), light_dir=_r3(rq, Q_LIGHT_DIR),
             max_len=rq[Q_MAX_LEN]))
+
+
+def _apply_commit(st: torch.Tensor, req: ShadeRequest, emis, tpo, shadowed, i: int, config,
+                  traverse_soa) -> BounceCarry:
+    """bounce_apply, then bounce_commit, on the carry that the state `st`
+    holds: each value computed as they compute it, each result written
+    into its row in place (`torch.where(..., out=)`). Returns the carry as
+    views of the state (`carry_views`: bounce_pre takes alive and tri as
+    float rows, and `_pack_rows` then finds every row in place)."""
+    m = req.m
+
+    def keep_or(mask, new, k):
+        torch.where(mask, new, st[k], out=st[k])
+
+    local_color, id_w = reservoir_finish(req.pick, emis, shadowed)
+    keep_or(req.write_id_w, id_w, RENDER_ID + 3)
+    ray_dir = next_ray_dir(req, tpo)
+    for c in range(3):
+        keep_or(m, st[FINAL_COLOR + c] + local_color[c] * st[IMPORTANCY + c], FINAL_COLOR + c)
+        keep_or(m, ray_dir[c], RAY_DIR + c)
+    if i + 1 < config.max_reflections:
+        zero = torch.zeros_like(m, dtype=torch.float32)
+        one = torch.ones_like(zero)
+        hit = traverse_soa(v3.where3(m, _r3(st, RAY_ORIGIN), (zero, zero, zero)),
+                           v3.where3(m, _r3(st, RAY_DIR), (zero, zero, one)), alive=m,
+                           bounce=True)
+        for k, x in zip((HS, HU, HV), hit[:3]):
+            keep_or(m, x, k)
+        new_tri = torch.where(m, hit[3], -1)
+        # st[ALIVE] is 0 or 1: bounce_commit's alive & (new_tri != -1)
+        torch.where(new_tri != -1, st[ALIVE], zero, out=st[ALIVE])
+        keep_or(m, torch.clamp_min(new_tri, 0), TRI)
+        for c in range(3):
+            keep_or(m, st[RAY_ORIGIN + c], LAST_HIT + c)
+    return carry_views(st)
 
 
 class _FrameBlocks:
@@ -273,11 +337,10 @@ def make_shade_bounce_post(buffers: SceneBuffers, camera_pos, config, kernels=No
         albedo, rough, metal, emis, tpo = tex
         torch.stack([*albedo, rough, metal, emis, *tpo], out=texb)
         kernels.shade(state, rq, texb, ndc, lights, cam, random_seed, cos_sample_n, i, config)
-        req = _request(rq, surface.m, carry)
+        req = _request(rq, surface.m)
         shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir, req.pick.max_len,
                               alive=req.m, bounce=True)
-        carry = bounce_apply(_shaded_carry(carry, state), tex, req, shadowed)
-        return bounce_commit(carry, req.m, i, config, traverse_soa)
+        return _apply_commit(state, req, emis, tpo, shadowed, i, config, traverse_soa)
 
     return bounce_post_fn
 
@@ -304,17 +367,12 @@ def make_fused_bounce_step(buffers: SceneBuffers, camera_pos, config, kernels=No
         _pack_rows(state, _carry_fields(carry))
         kernels.interp_shade(state, rq, ndc, mat, atlas, lights, cam, random_seed,
                              cos_sample_n, i, config)
-        m = state[SURF] > 0.0
-        req = _request(rq, m, carry)
-        # bounce_apply reads emis and tpo of the textures
-        tex = (None, None, None, rq[Q_EMIS], (rq[Q_TPO], rq[Q_TPO + 1], rq[Q_TPO + 2]))
+        req = _request(rq, state[SURF] > 0.0)
         shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir, req.pick.max_len,
-                              alive=m, bounce=True)
-        carry = _shaded_carry(carry, state)._replace(
-            alive=state[ALIVE] > 0.0,
-            ray_origin=(state[RAY_ORIGIN], state[RAY_ORIGIN + 1], state[RAY_ORIGIN + 2]))
-        carry = bounce_apply(carry, tex, req, shadowed)
-        return bounce_commit(carry, m, i, config, traverse_soa)
+                              alive=req.m, bounce=True)
+        # bounce_apply reads emis and tpo of the textures
+        return _apply_commit(state, req, rq[Q_EMIS], _r3(rq, Q_TPO), shadowed, i, config,
+                             traverse_soa)
 
     return bounce_step_fn
 

@@ -98,7 +98,9 @@ def test_frame_through_the_kernels_matches_the_plain_frame(frame, dev, scheme):
     tracer = PathTracer(96, 64, e.scene, e.camera, cfg, dev, scheme=scheme)
     img = tracer.render_frame()
     ran = {n for n, k, c in zip(KernelSet._fields, KERNELS, counts) if k.launches > c}
-    traversal = {"sp_pre", "sp_post"} if scheme == "auto" else {"closest_hit", "any_hit"}
+    # on "kernel" the textured floor takes the shade kernel by default
+    traversal = {"sp_pre", "sp_post"} if scheme == "auto" else {"closest_hit", "any_hit",
+                                                                 "shade"}
     assert ran == traversal | {"first_blur", "second_blur", "final_blur", "fxaa"}
     assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_imgs[scheme])
@@ -262,10 +264,53 @@ def test_sparse_frame_through_the_kernels_matches_the_plain_frame(sparse_frame, 
     ran = {n: k.launches - c for n, k, c in zip(KernelSet._fields, KERNELS, counts)
            if k.launches > c}
     assert ran == {"sparse_flags": 6, "sparse_key": 5, "sparse_closest": 3, "sparse_any": 3,
-                   "first_blur": 3, "second_blur": 3, "final_blur": 1, "fxaa": 1}
+                   "interp_shade": 3, "first_blur": 3, "second_blur": 3, "final_blur": 1,
+                   "fxaa": 1}
     assert img.shape == (64, 128, 3) and np.isfinite(img).all() and img.max() > 0
     d = np.abs(img - plain_img)
     assert (d > 2e-3).mean() <= 0.01 and d.max() <= 0.5
+
+
+def test_default_route_shades_the_dragon_in_interp_shade(dev, tmp_path):
+    """The default PathTracer on the dragon stand-in at 128x64 (sparse, 1x1
+    atlases) launches interp_shade and its alive list once a bounce, its
+    frames equal the shade_kernel=False frames bit for bit, and a frame's
+    peak device memory (above what was allocated before it) is not above
+    the eager frame's."""
+    from flexlight_tpu_torch import reset_global_registry
+    from flexlight_tpu_torch.kernels import KERNELS
+    from flexlight_tpu_torch.models.pathtracer import PathTracer
+    from flexlight_tpu_torch.ops import shade as S
+    from flexlight_tpu_torch.ops import shade_kernel as HK
+    from flexlight_tpu_torch.scenes import dragon
+
+    reset_global_registry()
+    e, animate = dragon(0, tmp_path / "objects", device=dev)
+    cfg = Config(temporal=True, temporal_samples=4, filter=True, antialiasing="fxaa",
+                 samples_per_ray=1, max_reflections=5)
+    runs = {}
+    for switch in (False, None):
+        tracer = PathTracer(128, 64, e.scene, e.camera, cfg, dev, shade_kernel=switch)
+        assert tracer.resolved_scheme() == "sparse"
+        frames, peaks = [], []
+        before = (KERNELS.interp_shade.launches, HK.alive_list.launches)
+        for i in range(3):
+            animate(float(i))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            frames.append(tracer.render_frame())
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        launched = (KERNELS.interp_shade.launches - before[0],
+                    HK.alive_list.launches - before[1])
+        runs[switch] = (frames, max(peaks[1:]), launched)
+        del tracer
+        torch.cuda.empty_cache()
+    assert S.bounce_shading(e.renderer._buffers, "sparse", None, dev.type) == "interp_shade"
+    assert runs[False][2] == (0, 0) and runs[None][2] == (3 * 5, 3 * 5)
+    for a, b in zip(runs[None][0], runs[False][0]):
+        assert np.isfinite(a).all() and a.max() > 0 and np.array_equal(a, b)
+    assert runs[None][1] <= runs[False][1], (runs[None][1], runs[False][1])
 
 
 @pytest.fixture(scope="module")

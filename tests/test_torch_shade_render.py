@@ -41,6 +41,7 @@ from flexlight_tpu_torch.ops import intersect_kernel as IK  # noqa: E402
 from flexlight_tpu_torch.ops import shade as S  # noqa: E402
 from flexlight_tpu_torch.ops import buffers as tbuf  # noqa: E402
 from flexlight_tpu_torch.ops.buffers import buffers_from_numpy  # noqa: E402
+from flexlight_tpu_torch.ops.fused import N_CARRY  # noqa: E402
 from flexlight_tpu_torch.ops.geometry import world_geometry  # noqa: E402
 from flexlight_tpu_torch.ops.pathtrace import block_untile, render_mrt  # noqa: E402
 from flexlight_tpu_torch.scene import transform as ttransform  # noqa: E402
@@ -84,10 +85,14 @@ FRAMES = [("cornell", True, 3), ("big_atlas", False, 3), ("mesh", True, 2)]
 
 @pytest.mark.parametrize("spp", [1, 2])
 @pytest.mark.parametrize("name,step,bounces", FRAMES)
-def test_shade_kernel_frame_equals_the_eager_frame(mesh_obj, name, step, bounces, spp):
+def test_shade_kernel_frame_equals_the_eager_frame(mesh_obj, monkeypatch, name, step, bounces,
+                                                   spp):
     """The plain kernels route as flexlight_tpu does and give the eager
     frame bit for bit, also when a second sample starts from the carried
-    channels that the state block holds."""
+    channels that the state block holds. The carry lives in the state
+    block: after each sample's first bounce, the drop-ins copy into it no
+    carry row but bounce_pre's alive and ray origin on the shade route
+    (every other row is written in place)."""
     _, tb, pos, view, scheme, size = _buffers(name, mesh_obj)
     assert S.fused_step_eligible(tb) == step and S.shade_kernel_eligible(tb)
     calls = {"shade": 0, "interp_shade": 0}
@@ -98,13 +103,34 @@ def test_shade_kernel_frame_equals_the_eager_frame(mesh_obj, name, step, bounces
             return getattr(S, f"{kind}_plain")(*a)
         return fn
 
+    copied = []   # per packing of the carry: the state rows it copies
+    pack = S._pack_rows
+
+    def recording_pack(state, rows, first=0):
+        if first == 0:
+            copied.append([k for k, x in enumerate(rows)
+                           if x.data_ptr() != state[k].data_ptr() or x.dtype != state.dtype])
+        pack(state, rows, first)
+
+    monkeypatch.setattr(S, "_pack_rows", recording_pack)
     kernels = PLAIN._replace(shade=count("shade"), interp_shade=count("interp_shade"))
     cfg = _config(bounces, spp)
     got = render_mrt(tb, size, size, pos, view, cfg, 1.0, scheme=scheme, kernels=kernels,
                      shade_kernel=True)
-    ref = render_mrt(tb, size, size, pos, view, cfg, 1.0, scheme=scheme, kernels=PLAIN)
+    ref = render_mrt(tb, size, size, pos, view, cfg, 1.0, scheme=scheme, kernels=PLAIN,
+                     shade_kernel=False)
     n = bounces * spp
     assert calls == {"shade": 0 if step else n, "interp_shade": n if step else 0}
+    pre_rows = [] if step else [S.ALIVE, S.RAY_ORIGIN, S.RAY_ORIGIN + 1, S.RAY_ORIGIN + 2]
+    assert len(copied) == n and len(copied[0]) == N_CARRY
+    for j, rows in enumerate(copied):
+        if j % bounces:
+            assert rows == pre_rows, (j, rows)
+        elif j:
+            # a later sample's first bounce: bounce_carry_init's rows, but
+            # the shader globals that the state carries across samples
+            assert not set(rows) & {*range(S.RENDER_ID, S.RENDER_ID + 4), S.GLASS, S.RME_X,
+                                    S.TPO_X, S.FIRST_RAY_LENGTH}, (j, rows)
     for ch in ref._fields:
         assert torch.equal(getattr(got, ch), getattr(ref, ch)), ch
     assert got.alpha.mean() > 0.3 and got.color.max() > 0
@@ -140,19 +166,36 @@ def test_shade_kernel_frame_matches_flexlight_tpu(mesh_obj, monkeypatch, name, s
 
 def test_routing_and_what_raises(tmp_path):
     """The dragon stand-in (no textures) takes interp_shade, theater
-    (textured floor) shade; scheme="fused_split" with the switch on
-    raises, and so does a scene with more lights than the kernels take."""
+    (textured floor) shade, by default on a CUDA device (bounce_shading
+    told the device type, so no card is needed) and eagerly on the CPU;
+    scheme="fused_split" with the switch on raises and renders under the
+    default; a scene with more lights than the kernels take raises with
+    the switch on and takes the eager loop under the default."""
     ttransform.reset_global_registry()
     engine, _ = dragon(0, tmp_path / "objects", device="cpu")
-    assert S.fused_step_eligible(engine.renderer._buffers)
+    db = engine.renderer._buffers
+    assert S.fused_step_eligible(db)
     e = theater(stand_in_wood_texture(0), device="cpu")
     tracer = PathTracer(8, 8, e.scene, e.camera, _config(2), "cpu", shade_kernel=True)
     assert tracer.resolved_scheme() == "fused_split"
     tb = tracer._buffers
     assert S.shade_kernel_eligible(tb) and not S.fused_step_eligible(tb)
+    many = tb._replace(lights=tb.lights[[0]].repeat(S.MAX_LIGHTS + 1, 1, 1))
+    for buffers, scheme, cuda in ((db, "sparse", "interp_shade"), (db, "kernel", "interp_shade"),
+                                  (tb, "kernel", "shade"), (tb, "sparse", "shade"),
+                                  (many, "kernel", "eager"), (tb, "scan", "eager"),
+                                  (tb, "clustered", "eager")):
+        assert S.bounce_shading(buffers, scheme, None, "cuda") == cuda, (scheme, cuda)
+        assert S.bounce_shading(buffers, scheme, None, "cpu") == "eager"
+        assert S.bounce_shading(buffers, scheme, False, "cuda") == "eager"
+    assert S.bounce_shading(db, "sparse", True, "cpu") == "interp_shade"
+    assert S.bounce_shading(tb, "kernel", True, "cpu") == "shade"
+    with pytest.raises(ValueError, match="scan"):
+        S.bounce_shading(tb, "scan", True, "cuda")
     with pytest.raises(ValueError, match="fused_split"):
         tracer.render_frame()
-    many = tb._replace(lights=tb.lights[[0]].repeat(S.MAX_LIGHTS + 1, 1, 1))
+    tracer.shade_kernel = None
+    assert tracer.render_frame().shape == (8, 8, 3)
     pos, view = e.camera.position, e.camera.view_matrix(8, 8)
     with pytest.raises(ValueError, match="lights"):
         render_mrt(many, 8, 8, pos, view, _config(2), 0.0, scheme="kernel", kernels=PLAIN,
@@ -163,23 +206,27 @@ def test_routing_and_what_raises(tmp_path):
 
 def test_the_switch_through_the_entry_points(monkeypatch):
     """FlexLight(canvas, device) -> renderer "pathtracer" -> shade_kernel =
-    True -> render_frame(): theater on scheme="kernel" reaches the shade
-    wrapper once per bounce, and its frame is the frame with the switch off."""
+    True / None / False -> render_frame(): theater on scheme="kernel"
+    reaches the shade wrapper once per bounce with the switch on, not
+    under the default on the CPU (the eager loop) nor with it off, and
+    the three give the same frames."""
     calls = []
     plain = KERNELS.shade.plain
     monkeypatch.setattr(KERNELS.shade, "plain", lambda *a: calls.append(a[-2]) or plain(*a))
     cfg = port.Config(temporal=True, temporal_samples=2, filter=True, antialiasing="fxaa",
                       max_reflections=3)
     frames = []
-    for switch in (True, False):
+    for switch in (True, None, False):
         e = theater(stand_in_wood_texture(0), device="cpu")
         e.canvas = (16, 12)
         e.config = cfg
         e.renderer = "pathtracer"
         e.renderer.scheme = "kernel"
+        assert e.renderer.shade_kernel is None
         e.renderer.shade_kernel = switch
         frames.append([e.renderer.render_frame() for _ in range(2)])
     assert calls == [0, 1, 2] * 2
-    for a, b in zip(*frames):
+    for a, b, c in zip(*frames):
         assert a.shape == (12, 16, 3) and np.isfinite(a).all()
         np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

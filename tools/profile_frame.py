@@ -3,10 +3,10 @@
     python3 tools/profile_frame.py [--scene theater|dragon|wave]
                                    [--renderer pathtracer|rasterizer|simple]
                                    [--scheme auto|fused_split|fused|kernel|sparse|scan|packet]
-                                   [--antialiasing fxaa|taa] [--shade-kernel]
+                                   [--antialiasing fxaa|taa] [--shade-kernel auto|on|off]
                                    [--device cuda:0] [--seed 0] [--timed 8] [--profiled 3]
                                    [--width 1920] [--height 1080]
-                                   [--out build/profile_frame_<scene>_<scheme>[_shade].json]
+                                   [--out build/profile_frame_<scene>_<scheme>[_shade_on|_shade_off].json]
 
 Renders --scene with the headline config (temporal 4, 3+3+final filter,
 FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
@@ -16,8 +16,10 @@ files written under build/objects/; 44,890 triangles, "auto" resolves to
 "sparse"; the monkey head's look-at animation runs before every frame)
 or wave (50 triangles, 1x1 textures: "auto" resolves to "fused_split",
 and it is eligible for "fused"; its pillars move before every frame).
---shade-kernel turns the renderer's shade_kernel switch on (kernel and
-sparse schemes: the shading kernels of ops.shade). --renderer rasterizer
+--shade-kernel sets the renderer's shade_kernel switch (kernel and sparse
+schemes: the shading kernels of ops.shade): auto (None, the default: a
+kernel where the scene allows), on (True) or off (False, the eager
+loop). --renderer rasterizer
 renders with the Rasterizer and the default Config instead ("auto":
 "kernel" below 4096 triangles, "sparse" from there), --renderer simple
 with the SimplePathTracer (scan casts); --antialiasing taa takes TAA in
@@ -103,7 +105,7 @@ def main() -> int:
                     choices=("auto", "fused_split", "fused", "kernel", "sparse", "scan",
                              "packet"))
     ap.add_argument("--antialiasing", default="fxaa", choices=("fxaa", "taa"))
-    ap.add_argument("--shade-kernel", action="store_true")
+    ap.add_argument("--shade-kernel", default="auto", choices=("auto", "on", "off"))
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timed", type=int, default=8)
@@ -112,7 +114,9 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    tag = ("_shade" if args.shade_kernel else "") + ("_taa" if args.antialiasing == "taa" else "")
+    shade_kernel = {"auto": None, "on": True, "off": False}[args.shade_kernel]
+    tag = ("" if shade_kernel is None else f"_shade_{args.shade_kernel}") + (
+        "_taa" if args.antialiasing == "taa" else "")
     out = args.out or os.path.join(
         ROOT, "build", f"profile_frame_{args.renderer}_{args.scene}_{args.scheme}{tag}.json")
 
@@ -147,7 +151,7 @@ def main() -> int:
         e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
     if args.renderer == "pathtracer":
         tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
-                            scheme=args.scheme, shade_kernel=args.shade_kernel)
+                            scheme=args.scheme, shade_kernel=shade_kernel)
     elif args.renderer == "rasterizer":
         tracer = Rasterizer(args.width, args.height, e.scene, e.camera,
                             Config(antialiasing=args.antialiasing), dev, scheme=args.scheme)
