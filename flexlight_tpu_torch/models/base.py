@@ -14,9 +14,9 @@ import time
 import numpy as np
 import torch
 
-from ..ops.buffers import build_scene_buffers
+from ..ops.buffers import AtlasTable, build_scene_buffers
 from ..utils.metrics import FrameMetrics, frame_record
-from ..utils.timing import span
+from ..utils.timing import span, tracing
 
 
 class Renderer:
@@ -58,8 +58,19 @@ class Renderer:
         self._halt = True
 
     def update_scene(self):
-        self._buffers = build_scene_buffers(self.scene, self.device)
-        self._transform_registry = None
+        """Flatten the scene and upload it anew. Traced, the span
+        fl.scene.update {triangles, lights, bytes, copies}: `copies` is the
+        number of tensors the upload made on the device, `bytes` their
+        size."""
+        with span("fl.scene.update") as scene_span:
+            self._buffers = build_scene_buffers(self.scene, self.device)
+            self._transform_registry = None
+            if tracing():
+                tensors = [t for field in self._buffers
+                           for t in (field if isinstance(field, AtlasTable) else (field,))]
+                scene_span.set(triangles=int(self._buffers.id_buffer.shape[0]),
+                               lights=int(self._buffers.lights.shape[0]),
+                               bytes=sum(t.nbytes for t in tensors), copies=len(tensors))
 
     def update_primary_light_sources(self):
         if self._buffers is None:

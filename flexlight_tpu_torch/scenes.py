@@ -27,6 +27,12 @@ are not in this repository either: `dragon_stand_in_objs` writes seeded
 stand-ins with the same triangle counts as the scene the examples render
 (44,890 drawable triangles, 43,600 of them the dragon): closed,
 noise-displaced UV spheres with smooth vertex normals.
+
+`example2` is examples/example2.py's build_scene line for line (the port
+of the reference's examples/example2.js, the many-lights stress scene:
+five cuboids over a plane, 64 light slots of which slot 1 starts empty),
+with its `animate`, which fills slot 1 with an orbiting light, moves a
+cuboid's vertices and rebuilds the renderer's scene buffers every frame.
 """
 
 from __future__ import annotations
@@ -385,5 +391,74 @@ def dragon(seed: int, directory, device=None, engine=None, fast: bool | None = N
                  - math.pi * 0.5)
         psi = math.acos(diff[1] / r) - math.pi * 0.5
         monke_transform.rotate_spherical(theta, psi)
+
+    return engine, animate
+
+
+def example2(device=None, engine=None):
+    """examples/example2.py:build_scene on a new flexlight_tpu_torch.FlexLight
+    on `device`, or on `engine` (a FlexLight of either package with a canvas
+    of 192 x 192). Returns (engine, animate): `animate(frame)` runs the
+    example's body (example2.js): slot 1 becomes a light orbiting at radius
+    20, the first cuboid moves by 0.05 sin(t) along x, and the renderer the
+    engine holds at that call rebuilds its scene buffers (update_scene)."""
+    if engine is None:
+        engine = FlexLight((192, 192), device=device)
+    engine.io = "web"
+    camera = engine.camera
+    scene = engine.scene
+
+    normal_tex = scene.texture_from_rme([0.3, 1, 0], 1, 1)
+    scene.pbr_textures.push(normal_tex)
+    scene.standardTextureSizes = [1, 1]
+
+    camera.x, camera.y, camera.z = -12, 5, -18
+    camera.fx, camera.fy = -0.440, 0.235
+
+    this_plane = scene.Plane([-100, -1, -100], [100, -1, -100],
+                             [100, -1, 100], [-100, -1, 100], [0, 1, 0])
+    this_plane.textureNums = [-1, -1, -1]
+    r = [
+        scene.Cuboid(-1.5, 4.5, -1, 2, 1.5, 2.5),
+        scene.Cuboid(-1.5, 1.5, -1, 2, -2, -1),
+        scene.Cuboid(0.5, 1.5, -1, 2, -1, 0),
+        scene.Cuboid(-1.5, -0.5, -1, 2, -1, 0),
+    ]
+    random.seed(0)
+    for cuboid in r:
+        cuboid.color = [random.random() * 255, random.random() * 255, random.random() * 255]
+        cuboid.textureNums = [-1, 0, -1]
+    cube = scene.Cuboid(5.5, 6.5, 1.5, 2.5, 5.5, 6.5)
+    objects = [r, cube]
+
+    lights = [None] * 64
+    lights[0] = [0, 10, 0]
+    lights[2] = [10, 30, 10]
+    lights[3] = [-10, 30, 10]
+    lights[4] = [10, 30, -10]
+    lights[5] = [-10, 30, -10]
+    lights[6] = [30, 30, 30]
+    lights[7] = [-30, 30, -30]
+    for i in range(8, 64):
+        lights[i] = [-300 + i * 10, 300, -300]
+    scene.primaryLightSources = lights
+    scene.primary_light_sources[0].intensity = 50
+    for i in range(2, 8):
+        scene.primary_light_sources[i].intensity = 200
+    for i in range(8, 64):
+        scene.primary_light_sources[i].intensity = 50
+    light_source = type(scene.primary_light_sources[0])   # the engine package's LightSource
+
+    scene.queue.push(this_plane, objects)
+    engine.renderer = "pathtracer"
+
+    state = {"iterator": 0.0}
+
+    def animate(_frame):
+        state["iterator"] += 0.01
+        s, c = math.sin(state["iterator"]), math.cos(state["iterator"])
+        scene.primary_light_sources[1] = light_source([20 * s, 8, 20 * c], intensity=10)
+        r[0].move(0.05 * s, 0, 0)
+        engine.renderer.update_scene()  # vertices moved -> re-flatten
 
     return engine, animate

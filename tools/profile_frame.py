@@ -1,6 +1,6 @@
 """Where the time of one of the port's frames goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--scene theater|dragon|wave]
+    python3 tools/profile_frame.py [--scene theater|dragon|wave|example2]
                                    [--renderer pathtracer|rasterizer|simple]
                                    [--scheme auto|fused_split|fused|kernel|sparse|scan|packet]
                                    [--antialiasing fxaa|taa] [--shade-kernel auto|on|off]
@@ -14,8 +14,12 @@ FXAA, 1 spp, 5 bounces) through flexlight_tpu_torch's PathTracer on
 "auto" resolves to "fused_split"), the dragon stand-in (its seeded OBJ
 files written under build/objects/; 44,890 triangles, "auto" resolves to
 "sparse"; the monkey head's look-at animation runs before every frame)
-or wave (50 triangles, 1x1 textures: "auto" resolves to "fused_split",
-and it is eligible for "fused"; its pillars move before every frame).
+wave (50 triangles, 1x1 textures: "auto" resolves to "fused_split",
+and it is eligible for "fused"; its pillars move before every frame) or
+example2, the many-lights stress scene (62 triangles, 64 lights: "auto"
+resolves to "fused_split"; before every frame its animate moves a light
+and a cuboid and rebuilds the scene buffers, update_scene, which the
+timed and the profiled frames include).
 --shade-kernel sets the renderer's shade_kernel switch (kernel and sparse
 schemes: the shading kernels of ops.shade): auto (None, the default: a
 kernel where the scene allows), on (True) or off (False, the eager
@@ -98,7 +102,8 @@ def device_kernels(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", default="theater", choices=("theater", "dragon", "wave"))
+    ap.add_argument("--scene", default="theater",
+                    choices=("theater", "dragon", "wave", "example2"))
     ap.add_argument("--renderer", default="pathtracer",
                     choices=("pathtracer", "rasterizer", "simple"))
     ap.add_argument("--scheme", default="auto",
@@ -130,10 +135,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from flexlight_tpu_torch import Config, reset_global_registry
-    from flexlight_tpu_torch.models.pathtracer import PathTracer
-    from flexlight_tpu_torch.models.rasterizer import Rasterizer
-    from flexlight_tpu_torch.models.simple import SimplePathTracer
-    from flexlight_tpu_torch.scenes import dragon, stand_in_wood_texture, theater, wave
+    from flexlight_tpu_torch.scenes import dragon, example2, stand_in_wood_texture, theater, wave
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -147,16 +149,25 @@ def main() -> int:
         e, animate = dragon(args.seed, os.path.join(ROOT, "build", "objects"), device=dev)
     elif args.scene == "wave":
         e, animate = wave(device=dev)
+    elif args.scene == "example2":
+        e, animate = example2(device=dev)
     else:
         e, animate = theater(stand_in_wood_texture(args.seed), device=dev), None
-    if args.renderer == "pathtracer":
-        tracer = PathTracer(args.width, args.height, e.scene, e.camera, config, dev,
-                            scheme=args.scheme, shade_kernel=shade_kernel)
+    # the renderer the engine holds: the one a scene's animate updates
+    e.canvas = (args.width, args.height)
+    if args.renderer == "simple":
+        e.config = config
+        e.api = "simple"
     elif args.renderer == "rasterizer":
-        tracer = Rasterizer(args.width, args.height, e.scene, e.camera,
-                            Config(antialiasing=args.antialiasing), dev, scheme=args.scheme)
+        e.config = Config(antialiasing=args.antialiasing)
+        e.renderer = "rasterizer"
     else:
-        tracer = SimplePathTracer(args.width, args.height, e.scene, e.camera, config, dev)
+        e.config = config
+        e.renderer = "pathtracer"
+        e.renderer.shade_kernel = shade_kernel
+    tracer = e.renderer
+    if args.renderer != "simple":
+        tracer.scheme = args.scheme
     scheme = tracer.resolved_scheme() if args.renderer != "simple" else "scan"
     frames = 0
 
